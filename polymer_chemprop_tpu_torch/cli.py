@@ -1,0 +1,33 @@
+"""Console entry point of the PyTorch port.
+
+Usage:
+    python -m polymer_chemprop_tpu_torch.cli predict --test_path ... \
+        --checkpoint_dir ... --preds_path ... [--device cuda|cpu]
+
+Prediction runs on the GPU (``--device cuda``, the default) or, when asked,
+on the CPU with the kernels' plain PyTorch versions. Training and the other
+subcommands of polymer_chemprop_tpu.cli are not on the port yet.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import List, Optional
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print(__doc__)
+        sys.exit(1)
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "predict":
+        from .train.make_predictions import chemprop_predict
+        chemprop_predict(rest)
+    else:
+        print(f"unknown command {cmd!r}\n{__doc__}")
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

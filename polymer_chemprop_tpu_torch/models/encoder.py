@@ -1,0 +1,153 @@
+"""wD-MPNN bond-message graph encoder in PyTorch.
+
+Semantics match polymer_chemprop_tpu models/encoder.py and the reference
+MPNEncoder (reference mpn.py:14-173):
+
+* ``inputs = W_i(f_bonds)``; ``message = act(inputs)``              (mpn.py:93-97)
+* depth-1 iterations of the weighted directed-bond update
+  ``m(a1->a2) = [sum_{a0 in N(a1)} w(a0->a1) m(a0->a1)] - m(a2->a1)``
+  followed by ``message = act(inputs + W_h(message))``: the residual is to
+  the *layer-0* input (mpn.py:110-124)
+* atom readout: weighted incoming sum, concat with f_atoms, W_o, act
+  (mpn.py:126-134)
+* molecule readout: stoichiometry-weighted aggregation scaled by
+  1+log10(Xn) (mpn.py:145-171)
+
+Two branches, chosen by the batch:
+
+* with ``"sorted_aux"`` (the loader's default), messages stay in dst-sorted
+  bond order and each layer is one :func:`~..ops.band_mpnn.band_rev_layer`
+  call, followed by one :func:`~..ops.band_mpnn.atom_readout`. On CUDA
+  tensors these launch the hand-written kernels; on CPU tensors they run
+  their plain versions. This mirrors the JAX package's sorted-resident
+  rev-fused branch (encoder.py:188-280).
+* without it, the reference branch runs the plain segment sums in natural
+  bond order, mirroring the JAX package's XLA branch (encoder.py:281-292).
+
+The port is inference-only for now: dropout is the identity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..ops.band_mpnn import atom_readout as atom_readout_sorted
+from ..ops.band_mpnn import band_rev_layer
+from ..ops.segment import atom_readout, bond_message_step, molecule_readout
+from .nn import get_activation
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Static encoder hyperparameters (the JAX package's EncoderConfig,
+    reference args.py:309-359)."""
+
+    atom_fdim: int
+    bond_fdim: int
+    hidden_size: int = 300
+    depth: int = 3
+    activation: str = "relu"
+    aggregation: str = "mean"
+    aggregation_norm: float = 100.0
+    bias: bool = False
+    undirected: bool = False
+    atom_messages: bool = False
+    atom_descriptors: Optional[str] = None
+    compute_dtype: str = "float32"
+
+    def check_supported(self) -> None:
+        """Raise for the configurations the JAX package sends to kernels the
+        port does not have yet (see ROADMAP.md)."""
+        missing = []
+        if self.atom_messages:
+            missing.append("atom_messages (needs the gather-then-readout "
+                           "kernel, pallas_mpnn.py:1455-1538)")
+        if self.undirected:
+            missing.append("undirected (needs the plain band kernel and its "
+                           "VJP, pallas_mpnn.py _band_kernel/_band_bwd_kernel)")
+        if self.bias:
+            missing.append("bias (W_i/W_h biases go through the plain band "
+                           "kernel path, pallas_mpnn.py _band_kernel)")
+        if self.compute_dtype != "float32":
+            missing.append(f"{self.compute_dtype} compute (the kernels are "
+                           "FP32 only)")
+        if self.atom_descriptors is not None:
+            missing.append("atom_descriptors")
+        if missing:
+            raise NotImplementedError(
+                "not on the port yet: " + "; ".join(missing))
+
+
+class MPNEncoder(nn.Module):
+    """One bond-message encoder (reference mpn.py:46-64): W_i, W_h without
+    bias, W_o with bias. Weights use torch's (out, in) layout."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        cfg.check_supported()
+        self.cfg = cfg
+        H = cfg.hidden_size
+        self.W_i = nn.Linear(cfg.bond_fdim, H, bias=False)
+        self.W_h = nn.Linear(H, H, bias=False)
+        self.W_o = nn.Linear(cfg.atom_fdim + H, H, bias=True)
+        self.act_name = cfg.activation.lower()
+        self.act = get_activation(self.act_name)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Encode one GraphBatch (tensors) -> (num_mols, hidden)."""
+        cfg = self.cfg
+        f_atoms = batch["f_atoms"]
+        num_atoms = f_atoms.shape[0]
+        inputs = self.W_i(batch["f_bonds"])
+        message = self.act(inputs)
+        aux = batch.get("sorted_aux")
+        if aux is not None:
+            # f_bonds arrive dst-sorted; messages stay sorted throughout
+            wh = self.W_h.weight.t().contiguous()  # (in, out) for the kernel
+            for _ in range(cfg.depth - 1):
+                message = band_rev_layer(message, inputs, wh, aux["w_sorted"],
+                                         aux["src_sorted"], aux["srev"],
+                                         aux["rowptr"], self.act_name)
+            a_message = atom_readout_sorted(message, aux["w_sorted"],
+                                            aux["rowptr"])
+        else:
+            w_bonds, b2dst = batch["w_bonds"], batch["b2dst"]
+            for _ in range(cfg.depth - 1):
+                message = bond_message_step(message, w_bonds, batch["b2a"],
+                                            b2dst, batch["b2revb"], num_atoms)
+                # layer-0 residual (mpn.py:123)
+                message = self.act(inputs + self.W_h(message))
+            a_message = atom_readout(message, w_bonds, b2dst, num_atoms)
+        atom_hiddens = self.act(self.W_o(torch.cat([f_atoms, a_message], 1)))
+        return molecule_readout(atom_hiddens, batch["w_atoms"],
+                                batch["a2mol"],
+                                batch["degree_of_polym"].shape[0],
+                                batch["degree_of_polym"],
+                                aggregation=cfg.aggregation,
+                                aggregation_norm=cfg.aggregation_norm)
+
+
+# index arrays the kernels read as int32; the rest index with int64
+_KERNEL_INDEX_KEYS = ("src_sorted", "srev", "rowptr")
+
+
+def batch_to_tensors(arrays: Dict, device) -> Dict:
+    """One GraphBatch's numpy arrays -> tensors on ``device``: floats as
+    float32, natural-order indices as int64, the kernels' indices as
+    contiguous int32."""
+    def conv(k, v):
+        if v.dtype.kind == "f":
+            return torch.as_tensor(v, dtype=torch.float32, device=device)
+        dtype = torch.int32 if k in _KERNEL_INDEX_KEYS else torch.int64
+        return torch.as_tensor(v, dtype=dtype, device=device).contiguous()
+
+    out = {k: conv(k, v) for k, v in arrays.items() if k != "sorted_aux"}
+    if "sorted_aux" in arrays:
+        out["sorted_aux"] = {k: conv(k, v)
+                             for k, v in arrays["sorted_aux"].items()}
+    return out
+

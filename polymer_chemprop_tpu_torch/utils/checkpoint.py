@@ -1,0 +1,110 @@
+"""Read and write the JAX package's ``.ckpt`` checkpoint format.
+
+The port's copy of polymer_chemprop_tpu utils/checkpoint.py:23-133, with
+numpy and zipfile only. A ``.ckpt`` is a zip of ``meta.json`` (train
+config, scalers, epoch) and ``params.npz`` (the flattened parameter
+pytree: ``a/b`` for dict levels, ``0#`` for list items, ``@none`` for
+None leaves). Parameters stay in the JAX layout here (Linear ``w`` is
+``(in, out)``); models/convert.py maps them onto the torch modules.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import zipfile
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from ..data.scaler import StandardScaler
+
+
+def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}#/"))
+    elif tree is None:
+        out[prefix + "@none"] = np.zeros(0)
+    else:
+        out[prefix.rstrip("/")] = np.asarray(tree)
+    return out
+
+
+def _unflatten(flat: Dict[str, np.ndarray]):
+    """Rebuild the pytree from path-keyed arrays ('#' marks list levels)."""
+    if list(flat.keys()) == [""]:
+        return flat[""]
+    root: Dict[str, Any] = {}
+    for key, value in flat.items():
+        if key.endswith("@none"):
+            parts = key.split("/")[:-1]
+            node = root
+            for p in parts[:-1] if parts else []:
+                node = node.setdefault(p, {})
+            continue
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        keys = list(node.keys())
+        if keys and all(k.endswith("#") for k in keys):
+            idx = sorted(keys, key=lambda k: int(k[:-1]))
+            return [listify(node[k]) for k in idx]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def save_checkpoint(path: str, params, config_dict: dict,
+                    scalers: Optional[Dict[str, Optional[StandardScaler]]] = None,
+                    epoch: Optional[int] = None) -> None:
+    """Write a ``.ckpt`` (zip of params.npz + meta.json) from a pytree of
+    numpy arrays in the JAX layout."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    meta = {
+        "config": config_dict,
+        "epoch": epoch,
+        "scalers": {k: (v.to_dict() if v is not None else None)
+                    for k, v in (scalers or {}).items()},
+    }
+    tmp = path + ".tmp"
+    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr("meta.json", json.dumps(meta))
+        buf = io.BytesIO()
+        np.savez(buf, **_flatten(params))
+        zf.writestr("params.npz", buf.getvalue())
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Tuple[Any, Optional[dict],
+                                        Dict[str, Optional[StandardScaler]],
+                                        Optional[int]]:
+    """Read params (numpy pytree), config dict, scalers and epoch."""
+    try:
+        zf = zipfile.ZipFile(path)
+    except zipfile.BadZipFile:
+        zf = None
+    if zf is None or "meta.json" not in zf.namelist():
+        if zf is not None:
+            zf.close()
+        raise NotImplementedError(
+            f"{path} is not a native .ckpt; importing reference torch .pt "
+            "checkpoints is not on the port yet")
+    with zf:
+        meta = json.loads(zf.read("meta.json"))
+        npz = np.load(io.BytesIO(zf.read("params.npz")))
+        params = _unflatten({k: npz[k] for k in npz.files})
+    scalers = {k: StandardScaler.from_dict(v)
+               for k, v in meta.get("scalers", {}).items()}
+    return params, meta["config"], scalers, meta.get("epoch")

@@ -13,7 +13,10 @@ setup(
                  "and polymer (wD-MPNN) property prediction"),
     license="MIT",
     packages=find_packages(exclude=["tests", "tests.*"]),
-    package_data={"polymer_chemprop_tpu": ["py.typed"]},
+    # polymer_chemprop_tpu_torch (the PyTorch/CUDA port) is found by
+    # find_packages; its CUDA sources are built at first use
+    package_data={"polymer_chemprop_tpu": ["py.typed"],
+                  "polymer_chemprop_tpu_torch": ["csrc/*.cu"]},
     entry_points={
         "console_scripts": [
             "chemprop_train=polymer_chemprop_tpu.cli:chemprop_train",
@@ -25,6 +28,7 @@ setup(
             "chemprop_interpret=polymer_chemprop_tpu.interpret:chemprop_interpret",
             "chemprop_web=polymer_chemprop_tpu.web.app:chemprop_web",
             "chemprop_ssl_pretrain=polymer_chemprop_tpu.ssl:ssl_pretrain_cli",
+            "chemprop_torch=polymer_chemprop_tpu_torch.cli:main",
         ]
     },
     install_requires=[

@@ -1,0 +1,111 @@
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package, no
+silent CPU run, and nothing built or required at import time."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "polymer_chemprop_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "optax", "polymer_chemprop_tpu")
+
+
+def _port_modules():
+    mods = []
+    for dirpath, _, files in os.walk(PORT):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)
+                mod = rel[:-3].replace(os.sep, ".")
+                mods.append(mod[:-len(".__init__")]
+                            if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = _port_modules()
+    assert "polymer_chemprop_tpu_torch.ops.band_mpnn" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.')"
+        f" for f in {FORBIDDEN!r})]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", ["polymer_chemprop_tpu_torch",
+                                  "chip_smoke.py"])
+def test_no_forbidden_import_in_source(path):
+    full = os.path.join(ROOT, path)
+    files = [full] if full.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(full) for f in fs
+        if f.endswith(".py")]
+    assert files
+    for f in files:
+        tree = ast.parse(open(f).read(), filename=f)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad = [n for n in names if _forbidden(n)]
+            assert not bad, f"{f}:{node.lineno} imports {bad}"
+
+
+def test_entry_point_without_device_cpu_raises_here(tmp_path):
+    """The default device is CUDA; without a GPU the port raises instead of
+    running on the CPU."""
+    import torch
+
+    from polymer_chemprop_tpu_torch.config import PredictConfig
+    from polymer_chemprop_tpu_torch.train.make_predictions import (
+        make_predictions,
+    )
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CUDA default is valid here")
+    test_csv = tmp_path / "t.csv"
+    test_csv.write_text("smiles\nCCO\n")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        make_predictions(PredictConfig(test_path=str(test_csv),
+                                       checkpoint_path="unused.ckpt"))
+
+
+def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
+    """Only a CPU tensor goes to the plain version; a tensor on any other
+    device goes to the kernel path (CUDA) or raises."""
+    import torch
+
+    from polymer_chemprop_tpu_torch.ops import band_mpnn
+    m = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        band_mpnn.atom_readout(m, torch.zeros(4, device="meta"),
+                               torch.zeros(3, dtype=torch.int32,
+                                           device="meta"))
+
+
+def test_kernel_modules_import_without_nvcc(monkeypatch):
+    """Importing the wrappers and the builder needs no nvcc: the build runs
+    at first launch, and without nvcc it fails loudly there."""
+    import importlib
+
+    monkeypatch.setenv("PATH", "/nonexistent")
+    build = importlib.import_module("polymer_chemprop_tpu_torch.kernels.build")
+    importlib.import_module("polymer_chemprop_tpu_torch.ops.band_mpnn")
+    assert build.KERNELS == ("band_rev_layer", "atom_readout")
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.nvcc_path()

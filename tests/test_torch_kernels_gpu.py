@@ -1,0 +1,95 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. CUDA kernels have no CPU mode, so every test here is marked ``gpu``
+and skips where no GPU is present. This file imports no JAX, so it also
+runs on a GPU machine without it:
+
+    python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
+
+Tolerance: FP32 with another summation order,
+max|kernel - plain| <= 1e-5 * max|plain| + 1e-6.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from polymer_chemprop_tpu_torch.features import FeaturizationConfig
+from polymer_chemprop_tpu_torch.features import mol2graph
+from polymer_chemprop_tpu_torch.ops import band_mpnn
+from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
+
+POLYMERS = ["[*:1]CC[*:2].[*:3]CO[*:4]|0.5|0.5|<1-3:0.5:0.5<2-4:0.5:0.5~20",
+            "[*:1]c1ccc([*:2])cc1.[*:3]C(C)C[*:4]|0.25|0.75|"
+            "<1-3:0.25:0.75<2-4:0.75:0.25~100"] * 8
+SMILES = ["CCO", "c1ccccc1", "CC(C)=CCCC(C)=CC(=O)",
+          "CCOc1ccc2nc(S(N)(=O)=O)sc2c1"] * 8
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (CUDA kernels have no "
+                    "CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _batch(kind, H, dev):
+    polymer = kind == "polymer"
+    gb = mol2graph(POLYMERS if polymer else SMILES,
+                   FeaturizationConfig(polymer=polymer))
+    aux = build_sorted_aux(gb.b2dst, gb.b2revb, gb.w_bonds,
+                           num_atoms=gb.f_atoms.shape[0])
+    B, n_real = gb.f_bonds.shape[0], int(aux.rowptr[-1])
+    rng = np.random.default_rng(0)
+    real = np.zeros((B, 1), np.float32)
+    real[:n_real] = 1.0
+    T = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+    m = T(rng.normal(size=(B, H)).astype(np.float32) * real)
+    inp = T(rng.normal(size=(B, H)).astype(np.float32) * real)
+    wh = T((rng.normal(size=(H, H)) * 0.1).astype(np.float32))
+    aux_t = {k: T(v) for k, v in aux._asdict().items()}
+    return m, inp, wh, aux_t, n_real
+
+
+def _close(got, want):
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item() + 1e-6, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", band_mpnn.ACT_IDS)
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [32, 300, 333])
+def test_band_rev_layer_matches_plain(cuda, kind, act, H):
+    m, inp, wh, a, n_real = _batch(kind, H, cuda)
+    args = (m, inp, wh, a["w_sorted"], a["src_sorted"], a["srev"],
+            a["rowptr"], act)
+    before = band_mpnn.band_rev_layer.launches
+    got = band_mpnn.band_rev_layer(*args)
+    assert band_mpnn.band_rev_layer.launches == before + 1
+    _close(got, band_mpnn.band_rev_layer_plain(*args))
+    assert (got[n_real:] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [32, 300, 333])
+def test_atom_readout_matches_plain(cuda, kind, H):
+    m, _, _, a, _ = _batch(kind, H, cuda)
+    got = band_mpnn.atom_readout(m, a["w_sorted"], a["rowptr"])
+    _close(got, band_mpnn.atom_readout_plain(m, a["w_sorted"], a["rowptr"]))
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.gpu
+def test_wrapper_rejects_bad_inputs(cuda):
+    m, inp, wh, a, _ = _batch("molecules", 32, cuda)
+    with pytest.raises(TypeError):
+        band_mpnn.band_rev_layer(m.double(), inp, wh, a["w_sorted"],
+                                 a["src_sorted"], a["srev"], a["rowptr"],
+                                 "relu")
+    with pytest.raises(ValueError, match="contiguous"):
+        band_mpnn.atom_readout(m.t().contiguous().t(), a["w_sorted"],
+                               a["rowptr"])
