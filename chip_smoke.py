@@ -14,11 +14,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. Hold each kernel against its plain PyTorch version on the card, on a
    featurized batch of 1024 molecules (about 28k dst-sorted bonds) at
    hidden 300, with unit and polymer (0.25/0.5/0.75) bond weights and
-   several activations. Tolerance: FP32 with another summation order, so
-   max|kernel - plain| <= 1e-5 * max|plain| + 1e-6. Time kernel, plain
-   version and a PyTorch library yardstick with CUDA events, each launch
-   after an L2 flush, and compute each kernel's bound from this batch.
-3. Main path: write full-width checkpoints (hidden 300, depth 3, FFN
+   several activations: the layer (and its ``z`` output), the layer's VJP
+   kernel ``band_rev_bwd`` and the readout. Tolerance: FP32 with another
+   summation order, so max|kernel - plain| <= 1e-5 * max|plain| + 1e-6.
+   The gradients (dm, dW_h, dinp and the readout's dm) of the two
+   ``torch.autograd.Function``s are held against PyTorch's autograd
+   through the plain versions, with the same tolerance relative to each
+   gradient's largest entry; padding rows must give dm = -g exactly and
+   add exactly nothing to dW_h. Time kernel, plain version and a PyTorch
+   library yardstick with CUDA events, each launch after an L2 flush, and
+   compute each kernel's bound from this batch.
+3. Serving path: write full-width checkpoints (hidden 300, depth 3, FFN
    2 x 300, seeded random weights) in the JAX package's ``.ckpt`` format,
    one for regression and one for polymer regression, and run the port's
    ``make_predictions`` on the card on tests/data/regression.csv (500
@@ -28,6 +34,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    must be finite and match the same run on the CPU (plain versions)
    within rtol 1e-4, atol 1e-5 (FP32 through five layers, sums in another
    order on each side).
+
+4. Training path: ``cross_validate`` on the card at full width (hidden
+   300, depth 3, FFN 2 x 300, relu, mean, f32, dropout 0, Noam, Adam,
+   batch 50): 3 epochs on tests/data/regression.csv (500 molecules,
+   400/50/50 split) and 2 epochs on 200 synthetic copolymers. The launch
+   counts of all three kernels must equal what the code implies (forward
+   layer = (depth - 1) x (train steps + evaluation batches), backward =
+   (depth - 1) x train steps, readout = one per forward); every logged
+   loss is finite and the training loss falls. One optimizer step from the
+   same initial weights on the same batch gives the same loss and gradient
+   norm on the card as on the CPU (rtol 1e-4: FP32, other summation
+   orders); the same whole run on the CPU (plain versions) gives the same
+   test score within rtol 1e-2 (three epochs of FP32 differences passed
+   through Adam's normalisation). The checkpoint the run wrote is then
+   predicted from on the card. Steps/s and molecules/s of the first
+   (featurizing) and last (cached) epoch are printed with the card, and
+   so is a cached epoch's time by part (loader, H2D, forward, backward,
+   optimizer) with the device's busy time from torch.profiler.
 
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
@@ -49,8 +73,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")   # git-ignored
 HIDDEN, DEPTH, SEED = 300, 3, 0
-BATCH_SIZE = 50          # the predict CLI's default
+BATCH_SIZE = 50          # the CLIs' default
 N_POLYMERS = 200
+TRAIN_EPOCHS = {"regression": 3, "polymer": 2}
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): FP32 without
 # tensor cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -108,8 +133,9 @@ def bench_batch():
     return gb
 
 
-def timed_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
-    """Median device time of one call, each after an L2 flush."""
+def timed_ms(label: str, fn, flush: torch.Tensor, reps: int = 20) -> float:
+    """Median device time of one call, each after an L2 flush; the spread
+    of the launches is logged under ``label``."""
     for _ in range(3):
         fn()
     times = []
@@ -122,7 +148,10 @@ def timed_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    lo, q1, med, q3, hi = np.percentile(times, [0, 25, 50, 75, 100])
+    log(f"[spread] {label}: min {lo:.4f} q1 {q1:.4f} median {med:.4f} "
+        f"q3 {q3:.4f} max {hi:.4f} ms over {reps} launches")
+    return float(med)
 
 
 def bound(bytes_moved: float, ops: float):
@@ -183,6 +212,73 @@ def kernel_phase(dev):
         r = results["atom_readout"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
 
+        # the VJP kernel, on a cotangent that is not zero on padding rows
+        g = T(rng.normal(size=(B, H)).astype(np.float32))
+        got = bm.band_rev_bwd(g, ws, srev, rp)
+        ref = bm.band_rev_bwd_plain(g, ws, srev, rp)
+        torch.cuda.synchronize()
+        err, tol = (got - ref).abs().max().item(), kernel_tolerance(ref)
+        log(f"[kernel] band_rev_bwd {weights}: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}), {B - n_real} padding rows")
+        check(err <= tol, "band_rev_bwd disagrees with its plain version")
+        check(torch.equal(got[n_real:], -g[n_real:]),
+              "dm of padding rows must equal -g")
+        results.setdefault("band_rev_bwd", {"max_abs_err": 0.0})
+        r = results["band_rev_bwd"]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+        # the forward kernel's z output (written only in training)
+        _, z = bm.band_rev_layer_forward(m, inp, wh, ws, src, srev, rp,
+                                         "relu", want_z=True)
+        z_ref = bm.band_rev_z_plain(m, ws, src, srev, rp)
+        torch.cuda.synchronize()
+        err, tol = (z - z_ref).abs().max().item(), kernel_tolerance(z_ref)
+        log(f"[kernel] band_rev_layer z {weights}: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e})")
+        check(err <= tol, "band_rev_layer's z disagrees with the plain z")
+        check(n_real == B or z[n_real:].abs().max().item() == 0.0,
+              "z of padding rows must be exactly zero")
+
+        # the two Functions' gradients against autograd through the plain
+        # versions, on the card
+        g_out = T(rng.normal(size=(B, H)).astype(np.float32))
+        g_atoms = T(rng.normal(size=(A, H)).astype(np.float32))
+        # keep every pre-activation 1e-3 away from 0, where relu's
+        # derivative would hang on the forward's last rounding
+        pre = inp + z_ref @ wh
+        inp_g = torch.where(pre.abs() < 1e-3,
+                            inp + torch.where(pre >= 0, 2e-3, -2e-3), inp)
+        for act in ("relu", "tanh"):
+            def grads(layer, readout):
+                leaves = [t.clone().requires_grad_(True)
+                          for t in (m, wh, inp_g)]
+                out = layer(leaves[0], leaves[2], leaves[1], ws, src, srev,
+                            rp, act)
+                return out, torch.autograd.grad(
+                    [out, readout(out)], leaves, [g_out, g_atoms])
+
+            out, got_g = grads(bm.band_rev_layer,
+                               lambda x: bm.atom_readout(x, ws, rp, dst))
+            _, want_g = grads(bm.band_rev_layer_plain,
+                              lambda x: bm.atom_readout_plain(x, ws, rp))
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dm", "dW_h", "dinp"), got_g, want_g):
+                err, tol = (a - b).abs().max().item(), kernel_tolerance(b)
+                log(f"[grad] {name} {weights} {act}: max_abs_err {err:.3e} "
+                    f"(tol {tol:.3e})")
+                check(err <= tol, f"{name} disagrees with autograd through "
+                                  "the plain versions")
+            # padding rows have z == 0 exactly, so dW_h = z^T g_pre is
+            # what the real rows alone give
+            g_pre = (g_out + ws[:, None] * g_atoms[dst]) \
+                * bm.act_grad_from_output(act, out.detach())
+            dwh_real = z[:n_real].t() @ g_pre[:n_real]
+            err = (got_g[1] - dwh_real).abs().max().item()
+            tol = kernel_tolerance(dwh_real)
+            log(f"[grad] dW_h {weights} {act} without padding rows: "
+                f"max_abs_err {err:.3e} (tol {tol:.3e})")
+            check(err <= tol, "padding rows moved dW_h")
+
         if weights != "unit":
             continue
         # timings and bounds at the bench shape, relu, unit weights
@@ -196,12 +292,22 @@ def kernel_phase(dev):
         def library_readout():
             return m.new_zeros((A, H)).index_add_(0, dst, m * ws[:, None])
 
+        def library_bwd():
+            g_rev = g[srev.long()]
+            s = g.new_zeros((A, H)).index_add_(0, dst, g_rev)
+            return ws[:, None] * s[dst] - g_rev
+
         run_len = (aux.rowptr[aux.src_sorted + 1]
                    - aux.rowptr[aux.src_sorted]).astype(np.int64).sum()
         b_bytes = 4 * (3 * B * H + H * H + 3 * B + (A + 1))
         b_ops = 2 * B * H * H + 2 * int(run_len) * H + B * H
         r_bytes = 4 * (n_real * H + n_real + A * H + (A + 1))
         r_ops = 2 * n_real * H
+        # g read once, dm written once, w, srev and rowptr read once; one
+        # add per run element for S, one fma per real and one negation per
+        # padding element for dm
+        v_bytes = 4 * (2 * B * H + 2 * B + (A + 1))
+        v_ops = 3 * n_real * H + (B - n_real) * H
         for name, kern, plain, lib, nbytes, ops in (
                 ("band_rev_layer",
                  lambda: bm.band_rev_layer(m, inp, wh, ws, src, srev, rp,
@@ -209,18 +315,27 @@ def kernel_phase(dev):
                  lambda: bm.band_rev_layer_plain(m, inp, wh, ws, src, srev,
                                                  rp, "relu"),
                  library_layer, b_bytes, b_ops),
+                ("band_rev_bwd", lambda: bm.band_rev_bwd(g, ws, srev, rp),
+                 lambda: bm.band_rev_bwd_plain(g, ws, srev, rp),
+                 library_bwd, v_bytes, v_ops),
                 ("atom_readout", lambda: bm.atom_readout(m, ws, rp),
                  lambda: bm.atom_readout_plain(m, ws, rp),
                  library_readout, r_bytes, r_ops)):
             r = results[name]
-            r["ms"] = timed_ms(kern, flush)
-            r["plain_ms"] = timed_ms(plain, flush)
-            r["library_ms"] = timed_ms(lib, flush)
+            r["ms"] = timed_ms(f"{name} kernel", kern, flush)
+            r["plain_ms"] = timed_ms(f"{name} plain", plain, flush)
+            r["library_ms"] = timed_ms(f"{name} library", lib, flush)
             r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
             log(f"[time] {name} at B={B} A={A} H={H}: kernel_ms "
                 f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
                 f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
                 f"({r['bound_by']}: {nbytes} bytes, {ops} operations)")
+        r = results["band_rev_layer"]
+        r["ms_with_z"] = timed_ms(
+            "band_rev_layer kernel with z", lambda: bm.band_rev_layer_forward(m, inp, wh, ws, src, srev, rp,
+                                              "relu", want_z=True), flush)
+        log(f"[time] band_rev_layer with z written: kernel_ms "
+            f"{r['ms_with_z']:.4f} (without: {r['ms']:.4f})")
     return results, B, A
 
 
@@ -259,19 +374,24 @@ def write_checkpoint(path, polymer: bool):
                     scalers={"data_scaler": scaler})
 
 
-def polymer_csv(path):
+def polymer_csv(path, with_target: bool = False):
     """Synthetic copolymer ensemble strings as in
-    tests/test_integration.py:71-82."""
+    tests/test_integration.py:71-82; ``with_target`` adds a column that
+    depends on composition and chain length, to train on."""
     rng = np.random.default_rng(SEED)
     mons = ["[*:1]CC[*:2]", "[*:1]c1ccc([*:2])cc1", "[*:1]CO[*:2]",
             "[*:1]C(C)C[*:2]", "[*:1]c1ccc([*:2])cc1C"]
-    rows = ["smiles"]
+    rows = ["smiles,target" if with_target else "smiles"]
     for _ in range(N_POLYMERS):
-        m1, m2 = rng.choice(mons, 2, replace=False)
-        m2 = m2.replace("[*:1]", "[*:3]").replace("[*:2]", "[*:4]")
+        i1, i2 = rng.choice(len(mons), 2, replace=False)
+        m1 = mons[i1]
+        m2 = mons[i2].replace("[*:1]", "[*:3]").replace("[*:2]", "[*:4]")
         w = rng.choice([0.25, 0.5, 0.75])
-        rows.append(f'"{m1}.{m2}|{w}|{1 - w}|'
-                    f'<1-3:0.5:0.5<2-4:0.5:0.5~{rng.integers(2, 200)}"')
+        xn = rng.integers(2, 200)
+        row = f'"{m1}.{m2}|{w}|{1 - w}|<1-3:0.5:0.5<2-4:0.5:0.5~{xn}"'
+        if with_target:
+            row += f",{w * i1 + (1 - w) * i2 + 0.5 * np.log10(xn):.4f}"
+        rows.append(row)
     with open(path, "w") as f:
         f.write("\n".join(rows) + "\n")
 
@@ -294,7 +414,7 @@ def main_path(card):
     polymer_csv(poly_csv)
     jobs.append(("polymer", poly_csv, poly_ckpt))
 
-    launches = {"band_rev_layer": 0, "atom_readout": 0}
+    launches = dict.fromkeys(bm.launch_counts(), 0)
     for name, test_path, ckpt in jobs:
         def run(device, tag):
             return np.asarray(make_predictions(PredictConfig(
@@ -317,6 +437,7 @@ def main_path(card):
         want = run("cpu", "cpu")          # the plain versions on the CPU
         check(counts["band_rev_layer"] == (DEPTH - 1) * batches, counts)
         check(counts["atom_readout"] == batches, counts)
+        check(counts["band_rev_bwd"] == 0, counts)
         for k in launches:
             launches[k] += counts[k]
         check(got.shape == want.shape == (n, 1), (got.shape, want.shape))
@@ -324,6 +445,222 @@ def main_path(card):
         err = np.abs(got - want).max()
         log(f"[main] {name}: max |gpu - cpu| {err:.3e}")
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    return launches
+
+
+# -- phase 4 ----------------------------------------------------------------
+
+def train_setup(cfg, device):
+    """``(train step, shuffled train loader)`` of ``cfg``'s run as the
+    trainer builds them (reference-stream init, serial batching)."""
+    from polymer_chemprop_tpu_torch.data import (MoleculeDataLoader,
+                                                  get_data, split_data)
+    from polymer_chemprop_tpu_torch.models.init import reference_init_model
+    from polymer_chemprop_tpu_torch.models.model import build_model_config
+    from polymer_chemprop_tpu_torch.train.scheduler import (build_optimizer,
+                                                            build_schedule)
+    from polymer_chemprop_tpu_torch.train.step import TrainStep, make_loss_fn
+    fcfg = cfg.featurization()
+    data = get_data(cfg.data_path, config=fcfg)
+    data.reset_features_and_targets()
+    train, _, _ = split_data(data, cfg.split_type, cfg.split_sizes, cfg.seed)
+    train.normalize_targets()
+    loader = MoleculeDataLoader(
+        train, fcfg, batch_size=cfg.batch_size, shuffle=True, seed=cfg.seed,
+        num_workers=1)
+    mcfg = build_model_config(cfg, data.num_tasks)
+    model = reference_init_model(mcfg, cfg.pytorch_seed).to(device)
+    step = TrainStep(
+        model, build_optimizer(cfg.optimizer, model.parameters()),
+        build_schedule(cfg.scheduler, init_lr=cfg.init_lr, max_lr=cfg.max_lr,
+                       final_lr=cfg.final_lr, warmup_epochs=cfg.warmup_epochs,
+                       epochs=cfg.epochs,
+                       steps_per_epoch=max(1, len(train) // cfg.batch_size)),
+        make_loss_fn(mcfg))
+    return step, loader
+
+
+def first_step(cfg, device):
+    """Loss and gradient norm of the first optimizer step of ``cfg``'s
+    run (first shuffled batch) on ``device``."""
+    from polymer_chemprop_tpu_torch.train.step import batch_tensors
+    step, loader = train_setup(cfg, device)
+    loss, gnorm = step(batch_tensors(next(iter(loader)), device))
+    return float(loss), float(gnorm)
+
+
+def epoch_breakdown(name, cfg, card, device="cuda"):
+    """Where a training epoch's time goes on the card, graphs cached.
+
+    Epoch 1 featurizes and warms up. Epoch 2 runs with a device sync after
+    every part and sums the host clock per part. Epoch 3 runs as the
+    trainer does (no sync until its end); epoch 4 the same under
+    torch.profiler, whose kernel times give the device's busy time."""
+    from polymer_chemprop_tpu_torch.train.step import batch_tensors
+    step, loader = train_setup(cfg, device)
+    model, optimizer = step.model, step.optimizer
+
+    def plain_epoch():
+        t0 = time.perf_counter()
+        out = [step(batch_tensors(b, device)) for b in loader]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, len(out)
+
+    plain_epoch()
+    parts = dict.fromkeys(("loader", "h2d", "forward", "backward",
+                           "optimizer"), 0.0)
+
+    def lap(part, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        parts[part] += t1 - t0
+        return t1
+
+    model.train()
+    batches = iter(loader)
+    t = time.perf_counter()
+    while True:
+        host_batch = next(batches, None)
+        t = lap("loader", t)
+        if host_batch is None:
+            break
+        batch = batch_tensors(host_batch, device)
+        t = lap("h2d", t)
+        optimizer.zero_grad(set_to_none=True)
+        loss = step.loss_fn(model, batch, None)
+        t = lap("forward", t)
+        loss.backward()
+        t = lap("backward", t)
+        for group in optimizer.param_groups:
+            group["lr"] = step.schedule(step.count)
+        optimizer.step()
+        step.count += 1
+        t = lap("optimizer", t)
+    total = sum(parts.values())
+    log(f"[train] {name} cached epoch, synced after every part: "
+        + ", ".join(f"{k} {1e3 * v:.1f} ms ({100 * v / total:.0f}%)"
+                    for k, v in parts.items())
+        + f", total {1e3 * total:.1f} ms on {card}")
+
+    wall, steps = plain_epoch()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        plain_epoch()
+    events = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in events) * 1e-6
+    n_kernels = sum(e.count for e in events
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    if busy > 0:
+        log(f"[train] {name} cached epoch as the trainer runs it: {steps} "
+            f"steps in {1e3 * wall:.1f} ms ({steps / wall:.1f} steps/s); "
+            f"device busy {1e3 * busy:.2f} ms in the profiled epoch "
+            f"({n_kernels / steps:.0f} device operations per step), idle "
+            f"share {100 * (1 - busy / wall):.1f}% on {card}")
+    else:
+        log(f"[train] {name} cached epoch as the trainer runs it: {steps} "
+            f"steps in {1e3 * wall:.1f} ms ({steps / wall:.1f} steps/s); "
+            "device busy time not measured (the profiler gave no device "
+            "time)")
+
+
+def training_path(card):
+    import csv
+    import re
+
+    from polymer_chemprop_tpu_torch.config import PredictConfig, TrainConfig
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    from polymer_chemprop_tpu_torch.train.make_predictions import (
+        make_predictions,
+    )
+    poly_csv = os.path.join(OUT_DIR, "polymers_train.csv")
+    polymer_csv(poly_csv, with_target=True)
+    jobs = [("regression", os.path.join(ROOT, "tests", "data",
+                                        "regression.csv"), False),
+            ("polymer", poly_csv, True)]
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+    for name, data_path, polymer in jobs:
+        epochs = TRAIN_EPOCHS[name]
+
+        def config(device):
+            return TrainConfig(
+                data_path=data_path, dataset_type="regression",
+                polymer=polymer, hidden_size=HIDDEN, depth=DEPTH,
+                ffn_num_layers=2, ffn_hidden_size=HIDDEN, dropout=0.0,
+                epochs=epochs, batch_size=BATCH_SIZE, seed=SEED,
+                num_workers=4, quiet=True, device=device,
+                # drop the graphs the serving phase cached, so that the
+                # first epoch featurizes as a fresh run does
+                empty_cache=True,
+                save_dir=os.path.join(OUT_DIR, f"train_{name}_{device}"))
+
+        cfg = config("cuda")
+        bm.reset_launch_counts()
+        t0 = time.perf_counter()
+        score, _ = cross_validate(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = bm.launch_counts()
+
+        with open(data_path) as f:
+            n = sum(1 for _ in f) - 1
+        n_train, n_val = int(0.8 * n), int(0.9 * n) - int(0.8 * n)
+        n_test = n - int(0.9 * n)
+        batches = lambda k: math.ceil(k / BATCH_SIZE)
+        steps = epochs * batches(n_train)
+        forwards = steps + epochs * (batches(n_val) + batches(n_train)) \
+            + batches(n_test)
+        log(f"[train] {name}: {n} molecules ({n_train}/{n_val}/{n_test}), "
+            f"{epochs} epochs, {steps} steps, {forwards} forwards, launches "
+            f"{counts}, test rmse {score:.6f}, {seconds:.3f} s end to end")
+        check(counts["band_rev_layer"] == (DEPTH - 1) * forwards, counts)
+        check(counts["band_rev_bwd"] == (DEPTH - 1) * steps, counts)
+        check(counts["atom_readout"] == forwards, counts)
+        for k in launches:
+            launches[k] += counts[k]
+
+        model_dir = os.path.join(cfg.save_dir, "fold_0", "model_0")
+        with open(os.path.join(model_dir, "train_val_loss_log.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r["train_loss"]) for r in rows]
+        check(len(rows) == epochs, rows)
+        check(all(np.isfinite(float(v)) for r in rows for v in r.values()),
+              rows)
+        check(np.isfinite(score), score)
+        log(f"[train] {name}: train loss by epoch {losses}")
+        check(losses[-1] < losses[0], "the training loss did not fall")
+        with open(os.path.join(cfg.save_dir, "verbose.log")) as f:
+            rates = [float(x) for x in
+                     re.findall(r"([0-9.]+) steps/s", f.read())]
+        rates = rates[-epochs:]       # the log grows if the script reruns
+        check(len(rates) == epochs, rates)
+        for tag, rate in (("first epoch (featurizing)", rates[0]),
+                          ("last epoch (graphs cached)", rates[-1])):
+            log(f"[train] {name} {tag}: {rate:.1f} steps/s, "
+                f"{rate * n_train / batches(n_train):.1f} molecules/s "
+                f"on {card}")
+
+        # the same first step and the same whole run on the CPU
+        got, want = first_step(cfg, "cuda"), first_step(config("cpu"), "cpu")
+        log(f"[train] {name}: first step (loss, gnorm) gpu {got} cpu {want}")
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        epoch_breakdown(name, cfg, card)
+        cpu_score, _ = cross_validate(config("cpu"))
+        log(f"[train] {name}: test rmse gpu {score:.6f} cpu {cpu_score:.6f}")
+        np.testing.assert_allclose(score, cpu_score, rtol=1e-2)
+
+        # serve from the checkpoint the run wrote, on the card
+        preds = np.asarray(make_predictions(PredictConfig(
+            test_path=data_path,
+            checkpoint_path=os.path.join(model_dir, "best_model.ckpt"),
+            preds_path=os.path.join(OUT_DIR, f"train_{name}_preds.csv"),
+            batch_size=BATCH_SIZE, num_workers=4, device="cuda")),
+            dtype=float)
+        check(preds.shape == (n, 1) and np.isfinite(preds).all(),
+              "predictions from the trained checkpoint")
     return launches
 
 
@@ -341,9 +678,13 @@ def main() -> int:
     card = card_and_build()
     results, B, A = kernel_phase(dev)
     launches = main_path(card)
+    for name, count in training_path(card).items():
+        launches[name] += count
     sources = {
         "band_rev_layer": ("polymer_chemprop_tpu_torch/csrc/band_rev_layer.cu",
                            "polymer_chemprop_tpu/ops/pallas_mpnn.py:1009"),
+        "band_rev_bwd": ("polymer_chemprop_tpu_torch/csrc/band_rev_bwd.cu",
+                         "polymer_chemprop_tpu/ops/pallas_mpnn.py:1074"),
         "atom_readout": ("polymer_chemprop_tpu_torch/csrc/atom_readout.cu",
                          "polymer_chemprop_tpu/ops/pallas_mpnn.py:1278"),
     }
@@ -356,6 +697,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    kernels[0]["ms_with_z"] = results["band_rev_layer"]["ms_with_z"]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(kernel shape B={B} A={A} H={HIDDEN})")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,12 +1,14 @@
 """Console entry point of the PyTorch port.
 
 Usage:
+    python -m polymer_chemprop_tpu_torch.cli train --data_path ... \
+        --dataset_type regression --save_dir ... [--device cuda|cpu]
     python -m polymer_chemprop_tpu_torch.cli predict --test_path ... \
         --checkpoint_dir ... --preds_path ... [--device cuda|cpu]
 
-Prediction runs on the GPU (``--device cuda``, the default) or, when asked,
-on the CPU with the kernels' plain PyTorch versions. Training and the other
-subcommands of polymer_chemprop_tpu.cli are not on the port yet.
+Both run on the GPU (``--device cuda``, the default; without a GPU they
+raise) or, when asked, on the CPU with the kernels' plain PyTorch versions.
+The other subcommands of polymer_chemprop_tpu.cli are not on the port yet.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(__doc__)
         sys.exit(1)
     cmd, rest = argv[0], argv[1:]
-    if cmd == "predict":
+    if cmd == "train":
+        from .train.cross_validate import chemprop_train
+        chemprop_train(rest)
+    elif cmd == "predict":
         from .train.make_predictions import chemprop_predict
         chemprop_predict(rest)
     else:

@@ -1,8 +1,8 @@
-"""Typed training/prediction configuration + the predict CLI.
+"""Typed training/prediction configuration + the train and predict CLIs.
 
-The port's copy of polymer_chemprop_tpu config.py: ``TrainConfig`` is read
-back from a checkpoint's metadata (``from_dict``) and yields its
-featurization; training itself is not on the port yet.
+The port's copy of polymer_chemprop_tpu config.py: ``TrainConfig`` drives
+training, is written into every checkpoint's metadata, and is read back
+from it (``from_dict``) to yield the featurization.
 
 Replaces the reference's Tap-based flag system (reference args.py, 820 LoC):
 every field is simultaneously a CLI flag (see :func:`_add_field_args`), a
@@ -140,9 +140,14 @@ class TrainConfig:
     spectra_phase_mask_path: Optional[str] = None
     alternative_loss_function: Optional[str] = None
 
+    # where the model trains: "cuda" (the default; raises without a GPU)
+    # or "cpu" (the plain PyTorch versions of the kernels)
+    device: str = "cuda"
+
     # fields the JAX package's trainer adds for its devices, parallelism
     # and kernels: kept so a checkpoint's config reads back whole. The
-    # port reads param_dtype (only float32 is supported) and nothing else.
+    # port reads param_dtype (only float32 is supported) and reference_init
+    # (None or True: replay the reference's torch init stream).
     num_devices: Optional[int] = None
     param_dtype: str = "float32"
     band_precision: str = "high"
@@ -177,6 +182,11 @@ class TrainConfig:
     @property
     def metrics(self) -> List[str]:
         return [self.metric] + list(self.extra_metrics)
+
+    @property
+    def minimize_score(self) -> bool:
+        from .train.metrics import minimize_score
+        return minimize_score(self.metric)
 
     def _validate_metrics(self) -> None:
         """(reference args.py:563-573 validity matrix)."""
@@ -334,6 +344,25 @@ def _add_field_args(parser: argparse.ArgumentParser, cls) -> None:
             parser.add_argument(name, type=float, default=default)
         else:
             parser.add_argument(name, type=str, default=default)
+
+
+def parse_train_args(argv: Optional[List[str]] = None) -> TrainConfig:
+    parser = argparse.ArgumentParser(
+        prog="polymer_chemprop_tpu_torch train",
+        description="Train a wD-MPNN property prediction model.")
+    _add_field_args(parser, TrainConfig)
+    parser.add_argument("--config_path", type=str, default=None,
+                        help="JSON config overriding CLI flags "
+                             "(reference args.py:537-542 semantics)")
+    ns = parser.parse_args(argv)
+    d = vars(ns)
+    config_path = d.pop("config_path", None)
+    if d.get("split_sizes") is not None:
+        d["split_sizes"] = tuple(d["split_sizes"])
+    if config_path is not None:
+        with open(config_path) as f:
+            d.update(json.load(f))  # config file overrides CLI (reference quirk)
+    return TrainConfig.from_dict(d)
 
 
 def parse_predict_args(argv: Optional[List[str]] = None) -> PredictConfig:

@@ -1,7 +1,7 @@
-"""CSV ingestion for prediction (reference data/utils.py:53-389).
+"""CSV ingestion (reference data/utils.py:53-389).
 
-The port's copy of what prediction needs from polymer_chemprop_tpu
-data/csv_io.py: SMILES columns, task names, the validity parse, and
+The port's copy of polymer_chemprop_tpu data/csv_io.py: SMILES columns,
+task names, targets, per-datapoint loss weights, the validity parse, and
 CSV/SMILES-list datasets. Extra feature inputs (feature files, generators,
 atom/bond descriptor files) are not on the port yet.
 """
@@ -52,6 +52,21 @@ def get_task_names(path: str,
     return [c for c in header if c not in ignore]
 
 
+def get_data_weights(path: str) -> List[float]:
+    """Per-datapoint loss weights file (reference data/utils.py:101-119)."""
+    weights = []
+    with open(path) as f:
+        reader = csv.reader(f)
+        next(reader)
+        for row in reader:
+            weights.append(float(row[0]))
+    avg = sum(weights) / len(weights)
+    weights = [w / avg for w in weights]
+    if min(weights) < 0:
+        raise ValueError("Data weights must be non-negative.")
+    return weights
+
+
 def _parseable(smiles: List[str], config: FeaturizationConfig) -> bool:
     for s in smiles:
         if config.reaction:
@@ -85,6 +100,7 @@ def get_data(path: str,
              ignore_columns: Optional[Sequence[str]] = None,
              number_of_molecules: int = 1,
              config: Optional[FeaturizationConfig] = None,
+             data_weights_path: Optional[str] = None,
              max_data_size: Optional[int] = None,
              skip_invalid_smiles: bool = True,
              store_row: bool = False) -> MoleculeDataset:
@@ -95,6 +111,8 @@ def get_data(path: str,
     task_names = get_task_names(path, smiles_columns, target_columns,
                                 ignore_columns, number_of_molecules)
     max_data_size = max_data_size or float("inf")
+    data_weights = get_data_weights(data_weights_path) \
+        if data_weights_path is not None else None
     rows = []
     with open(path) as f:
         for row in csv.DictReader(f):
@@ -102,12 +120,13 @@ def get_data(path: str,
                 break
             rows.append(row)
     datapoints = []
-    for row in rows:
+    for i, row in enumerate(rows):
         targets = [float(row[t]) if row[t] not in ("", "nan") else None
                    for t in task_names]
         datapoints.append(MoleculeDatapoint(
             smiles=[row[c] for c in smiles_columns], targets=targets,
-            row=OrderedDict(row) if store_row else None))
+            row=OrderedDict(row) if store_row else None,
+            data_weight=data_weights[i] if data_weights is not None else 1.0))
     if skip_invalid_smiles:
         # validation parse (reference utils.py:158-174), memoized per
         # unique SMILES tuple
@@ -134,3 +153,16 @@ def get_data_from_smiles(smiles: List[List[str]],
     if skip_invalid_smiles:
         datapoints = [d for d in datapoints if _parseable(d.smiles, config)]
     return MoleculeDataset(datapoints)
+
+
+def validate_dataset_type(data: MoleculeDataset, dataset_type: str) -> None:
+    """Check targets match the dataset type (reference data/utils.py:584-599)."""
+    target_set = {t for row in data.targets() for t in row if t is not None}
+    classification = target_set <= {0, 1}
+    if dataset_type == "classification" and not classification:
+        raise ValueError("Classification data targets must only be 0 or 1 "
+                         "(or None).")
+    if dataset_type == "regression" and classification and len(target_set) > 0:
+        import warnings
+        warnings.warn("Regression data targets are all 0/1; did you mean "
+                      "--dataset_type classification?")

@@ -27,7 +27,7 @@ from typing import Dict, Iterable, List
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
-KERNELS = ("band_rev_layer", "atom_readout")
+KERNELS = ("band_rev_layer", "band_rev_bwd", "atom_readout")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -103,6 +103,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.band_rev_layer_f32.restype = i
         lib.band_rev_layer_smem_bytes.argtypes = [i]
         lib.band_rev_layer_smem_bytes.restype = ctypes.c_size_t
+    elif name == "band_rev_bwd":
+        lib.band_rev_bwd_f32.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.band_rev_bwd_f32.restype = i
     elif name == "atom_readout":
         lib.atom_readout_f32.argtypes = [p, p, p, p, i, i, p]
         lib.atom_readout_f32.restype = i

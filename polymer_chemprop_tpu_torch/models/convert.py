@@ -8,11 +8,27 @@ one transpose, in each direction, lives here.
 JAX pytree layout: ``{"encoders": [{"W_i": {...}, "W_h": {...},
 "W_o": {...}}, ...], "ffn": [{...}, ...]}``. With ``mpn_shared`` the JAX
 list repeats one encoder; the port keeps one module.
+
+The optimizer state crosses the same way. The JAX package saves its optax
+state as the flat list of leaves (utils/checkpoint.py:94-99), and jax
+flattens dicts in sorted key order and skips empty nodes, so for the
+chains that train/scheduler.py builds the list is
+
+* adam, adamw: ``[count, *mu, *nu, count]`` (scale_by_adam's count and
+  moments, then scale_by_schedule's count), each moment tree holding the
+  trainable parameters only (frozen ones are masked out by
+  ``multi_transform``) in the order ``encoders[i].{W_h, W_i, W_o}.{b, w}``,
+  ``ffn[j].{b, w}``;
+* sgd: ``[count]``.
+
+``clip_by_global_norm``, ``add_decayed_weights`` and ``set_to_zero`` carry
+no leaves. :func:`opt_state_to_leaves` and :func:`opt_state_from_leaves`
+map that list to and from a ``torch.optim`` optimizer's state.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -50,13 +66,13 @@ def params_from_jax(params: Dict, mpn_shared: bool = False
     return state
 
 
-def params_to_jax(model: MoleculeModel) -> Dict:
-    """MoleculeModel -> JAX parameter pytree (numpy leaves), the inverse of
-    :func:`params_from_jax`."""
-    def linear(mod: torch.nn.Linear) -> Dict[str, np.ndarray]:
-        p = {"w": mod.weight.detach().cpu().numpy().T.copy()}
+def _param_tree(model: MoleculeModel, leaf: Callable) -> Dict:
+    """A pytree in the JAX parameter layout with ``leaf(p)`` at each model
+    parameter ``p``. A shared encoder is repeated per molecule position."""
+    def linear(mod: torch.nn.Linear) -> Dict:
+        p = {"w": leaf(mod.weight)}
         if mod.bias is not None:
-            p["b"] = mod.bias.detach().cpu().numpy().copy()
+            p["b"] = leaf(mod.bias)
         return p
 
     encs = [{name: linear(getattr(e, name)) for name in _ENCODER_LINEARS}
@@ -66,9 +82,90 @@ def params_to_jax(model: MoleculeModel) -> Dict:
     return {"encoders": encs, "ffn": [linear(l) for l in model.ffn]}
 
 
+def _to_jax_layout(t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return a.T.copy() if a.ndim == 2 else a.copy()
+
+
+def params_to_jax(model: MoleculeModel) -> Dict:
+    """MoleculeModel -> JAX parameter pytree (numpy leaves), the inverse of
+    :func:`params_from_jax`."""
+    return _param_tree(model, _to_jax_layout)
+
+
 def load_jax_params(model: MoleculeModel, params: Dict) -> MoleculeModel:
     """Copy a JAX parameter pytree into ``model`` (strict: every tensor of
     the model must be given, and nothing else)."""
     model.load_state_dict(params_from_jax(params, model.cfg.mpn_shared),
                           strict=True)
     return model
+
+
+def _sorted_leaves(tree) -> List:
+    """Leaves in jax's flattening order: dict keys sorted, lists in order,
+    None skipped."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _sorted_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _sorted_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _trainable_in_jax_order(model: MoleculeModel, optimizer
+                            ) -> List[torch.nn.Parameter]:
+    """The optimizer's parameters in the JAX state's leaf order. A shared
+    encoder appears once per molecule position, as in the JAX pytree."""
+    owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    return _sorted_leaves(
+        _param_tree(model, lambda p: p if id(p) in owned else None))
+
+
+def _is_adam(optimizer) -> bool:
+    return isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW))
+
+
+def opt_state_to_leaves(model: MoleculeModel,
+                        optimizer: torch.optim.Optimizer,
+                        count: int) -> List[np.ndarray]:
+    """The optimizer's state after ``count`` updates as the JAX package's
+    list of optax leaves (see the module docstring)."""
+    c = np.asarray(count, np.int32)
+    if not _is_adam(optimizer):
+        return [c]
+    params = _trainable_in_jax_order(model, optimizer)
+
+    def moments(key):
+        out = []
+        for p in params:
+            st = optimizer.state.get(p)
+            out.append(_to_jax_layout(st[key] if st else torch.zeros_like(p)))
+        return out
+
+    return [c, *moments("exp_avg"), *moments("exp_avg_sq"), c]
+
+
+def opt_state_from_leaves(model: MoleculeModel,
+                          optimizer: torch.optim.Optimizer,
+                          leaves: List[np.ndarray]) -> int:
+    """Load a list of optax leaves into ``optimizer`` (moments transposed
+    back to ``(out, in)``); returns the update count."""
+    count = int(np.asarray(leaves[0]))
+    if not _is_adam(optimizer):
+        return count
+    params = _trainable_in_jax_order(model, optimizer)
+    n = len(params)
+    if len(leaves) != 2 * n + 2:
+        raise ValueError(f"optimizer state has {len(leaves)} leaves, "
+                         f"expected {2 * n + 2} for {n} trainable parameters")
+    for i, p in enumerate(params):
+        def moment(a):
+            a = np.asarray(a, np.float32)
+            t = torch.from_numpy(np.ascontiguousarray(a.T if a.ndim == 2
+                                                      else a))
+            return t.to(p.device).reshape(p.shape).clone()
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": moment(leaves[1 + i]),
+            "exp_avg_sq": moment(leaves[1 + n + i]),
+        }
+    return count

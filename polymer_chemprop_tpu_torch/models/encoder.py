@@ -24,7 +24,12 @@ Two branches, chosen by the batch:
 * without it, the reference branch runs the plain segment sums in natural
   bond order, mirroring the JAX package's XLA branch (encoder.py:281-292).
 
-The port is inference-only for now: dropout is the identity.
+In training mode (``module.train()``) dropout is applied where the JAX
+package applies it (encoder.py:263-266, 291, 304): after every depth-loop
+layer and after the atom hiddens, from an explicit ``torch.Generator``. Both
+branches are differentiable: the kernel branch through the hand-written
+``torch.autograd.Function``s of ops/band_mpnn.py, the reference branch
+through PyTorch's own autograd.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from torch import nn
 from ..ops.band_mpnn import atom_readout as atom_readout_sorted
 from ..ops.band_mpnn import band_rev_layer
 from ..ops.segment import atom_readout, bond_message_step, molecule_readout
-from .nn import get_activation
+from .nn import dropout, get_activation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +55,7 @@ class EncoderConfig:
     bond_fdim: int
     hidden_size: int = 300
     depth: int = 3
+    dropout: float = 0.0
     activation: str = "relu"
     aggregation: str = "mean"
     aggregation_norm: float = 100.0
@@ -97,9 +103,15 @@ class MPNEncoder(nn.Module):
         self.act_name = cfg.activation.lower()
         self.act = get_activation(self.act_name)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Encode one GraphBatch (tensors) -> (num_mols, hidden)."""
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Encode one GraphBatch (tensors) -> (num_mols, hidden).
+        ``generator`` feeds the dropout masks in training mode."""
         cfg = self.cfg
+
+        def drop(x):
+            return dropout(x, cfg.dropout, self.training, generator)
+
         f_atoms = batch["f_atoms"]
         num_atoms = f_atoms.shape[0]
         inputs = self.W_i(batch["f_bonds"])
@@ -112,17 +124,19 @@ class MPNEncoder(nn.Module):
                 message = band_rev_layer(message, inputs, wh, aux["w_sorted"],
                                          aux["src_sorted"], aux["srev"],
                                          aux["rowptr"], self.act_name)
+                message = drop(message)
             a_message = atom_readout_sorted(message, aux["w_sorted"],
-                                            aux["rowptr"])
+                                            aux["rowptr"], aux["dst_sorted"])
         else:
             w_bonds, b2dst = batch["w_bonds"], batch["b2dst"]
             for _ in range(cfg.depth - 1):
                 message = bond_message_step(message, w_bonds, batch["b2a"],
                                             b2dst, batch["b2revb"], num_atoms)
                 # layer-0 residual (mpn.py:123)
-                message = self.act(inputs + self.W_h(message))
+                message = drop(self.act(inputs + self.W_h(message)))
             a_message = atom_readout(message, w_bonds, b2dst, num_atoms)
-        atom_hiddens = self.act(self.W_o(torch.cat([f_atoms, a_message], 1)))
+        atom_hiddens = drop(
+            self.act(self.W_o(torch.cat([f_atoms, a_message], 1))))
         return molecule_readout(atom_hiddens, batch["w_atoms"],
                                 batch["a2mol"],
                                 batch["degree_of_polym"].shape[0],

@@ -10,14 +10,14 @@ applies the eval-time sigmoid (classification) or softmax (multiclass).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from .encoder import EncoderConfig, MPNEncoder
-from .nn import get_activation
+from .nn import dropout, get_activation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +59,7 @@ def build_model_config(cfg, num_tasks: int) -> ModelConfig:
         bond_fdim=fcfg.bond_fdim(cfg.atom_messages),
         hidden_size=cfg.hidden_size,
         depth=cfg.depth,
+        dropout=cfg.dropout,
         activation=cfg.activation,
         aggregation=cfg.aggregation,
         aggregation_norm=cfg.aggregation_norm,
@@ -106,22 +107,28 @@ class MoleculeModel(nn.Module):
         self.ffn = nn.ModuleList(nn.Linear(i, o) for i, o in ffn_dims(cfg))
         self.act = get_activation(cfg.encoder.activation)
 
-    def encode(self, batches: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
+    def encode(self, batches: Sequence[Dict[str, torch.Tensor]],
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Concatenated per-position molecule encodings
         (reference mpn.py:210-289)."""
-        encodings = [self.encoders[0 if self.cfg.mpn_shared else i](b)
-                     for i, b in enumerate(batches)]
+        encodings = [
+            self.encoders[0 if self.cfg.mpn_shared else i](b, generator)
+            for i, b in enumerate(batches)]
         return torch.cat(encodings, 1) if len(encodings) > 1 else encodings[0]
 
     def forward(self, batches: Sequence[Dict[str, torch.Tensor]],
-                return_embeddings: bool = False):
+                return_embeddings: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Raw predictions (spectra activation applied; sigmoid/softmax are
-        left to :func:`postprocess_preds`, reference model.py:152-194)."""
-        emb = self.encode(batches)
+        left to :func:`postprocess_preds`, reference model.py:152-194). In
+        training mode the FFN is dropout -> linear [-> act -> dropout ->
+        linear]* (reference model.py:79-100), masks from ``generator``."""
+        emb = self.encode(batches, generator)
         h = emb
         for i, layer in enumerate(self.ffn):
             if i > 0:
                 h = self.act(h)
+            h = dropout(h, self.cfg.encoder.dropout, self.training, generator)
             h = layer(h)
         if self.cfg.dataset_type == "spectra":
             h = F.softplus(h) if self.cfg.spectra_activation == "softplus" \

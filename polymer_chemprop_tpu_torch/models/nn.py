@@ -1,13 +1,13 @@
-"""Small NN building blocks: the activation registry.
+"""Small NN building blocks: activations, dropout, parameter norms.
 
-Mirrors polymer_chemprop_tpu models/nn.py:19-27 and the fused kernel
-epilogues of ops/pallas_mpnn.py:365-372 (reference nn_utils.py:70-99).
-PReLU is LeakyReLU(0.25), its torch init value, not a learnable slope.
+Mirrors polymer_chemprop_tpu models/nn.py and the fused kernel epilogues of
+ops/pallas_mpnn.py:365-372 (reference nn_utils.py:11-30, 70-99). PReLU is
+LeakyReLU(0.25), its torch init value, not a learnable slope.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,3 +27,25 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name not in _ACTIVATIONS:
         raise ValueError(f'Activation "{name}" not supported.')
     return _ACTIVATIONS[name]
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout; the identity at rate 0 or outside training. The
+    mask is drawn from ``generator``, which must live on ``x``'s device
+    (``None`` draws from that device's global stream)."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def param_count(params: Iterable[torch.Tensor]) -> int:
+    return sum(p.numel() for p in params)
+
+
+def compute_pnorm(params: Iterable[torch.Tensor]) -> float:
+    """Parameter L2 norm (reference nn_utils.py:11-19)."""
+    return float(torch.sqrt(sum((p.detach() ** 2).sum() for p in params)))

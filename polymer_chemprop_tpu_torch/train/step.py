@@ -1,0 +1,108 @@
+"""The loss closure and one optimizer step.
+
+The port's counterpart of polymer_chemprop_tpu train/step.py (reference
+train.py:39-88): forward, masked loss, backward, clip, optimizer step and
+the per-step learning rate. Nothing here reads a value back from the
+device: loss and gradient norm are returned as tensors, and the trainer
+fetches an epoch's worth at once.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..models.encoder import batch_to_tensors
+from ..models.model import ModelConfig, MoleculeModel
+from .loss import get_loss_fn, masked_loss
+from .scheduler import Schedule
+
+
+def batch_tensors(device_batch, device) -> Dict:
+    """DeviceBatch (host arrays) -> tensors on ``device``."""
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+    return {
+        "graphs": [batch_to_tensors(g, device)
+                   for g in device_batch.graph_arrays],
+        "targets": as_t(device_batch.targets),
+        "mask": as_t(device_batch.mask),
+        "weights": as_t(device_batch.data_weights),
+    }
+
+
+def make_loss_fn(cfg: ModelConfig,
+                 target_weights: Optional[torch.Tensor] = None,
+                 alternative_loss_function: Optional[str] = None,
+                 spectra_target_floor: Optional[float] = None) -> Callable:
+    """``loss_fn(model, batch, generator) -> scalar``: the masked training
+    loss of one batch; ``generator`` feeds dropout in training mode."""
+    elementwise = get_loss_fn(cfg.dataset_type, alternative_loss_function)
+
+    def loss_fn(model: MoleculeModel, batch: Dict,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        preds = model(batch["graphs"], generator=generator)
+        targets, mask = batch["targets"], batch["mask"]
+        if cfg.dataset_type == "multiclass":
+            preds3 = preds.reshape(preds.shape[0], -1,
+                                   cfg.multiclass_num_classes)
+            elem = elementwise(preds3, targets)
+        elif cfg.dataset_type == "spectra":
+            elem = elementwise(preds, targets, mask, spectra_target_floor)
+        else:
+            elem = elementwise(preds, targets)
+        return masked_loss(elem, mask, target_weights, batch["weights"])
+
+    return loss_fn
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum((t.detach() ** 2).sum() for t in tensors))
+
+
+class TrainStep:
+    """One optimizer update per call, returning ``(loss, gnorm)`` as
+    tensors on the model's device.
+
+    * ``gnorm`` is the global norm of the gradients of ALL parameters,
+      frozen ones included, before clipping.
+    * Clipping scales the optimizer's (trainable) gradients by
+      ``max / max(norm, max)`` with ``norm`` taken over them.
+    * The learning rate of update ``k`` (0-based) is ``schedule(k)``;
+      ``count`` is that ``k``, saved and restored with the optimizer state.
+    """
+
+    def __init__(self, model: MoleculeModel, optimizer: torch.optim.Optimizer,
+                 schedule: Schedule, loss_fn: Callable,
+                 grad_clip: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None):
+        self.model = model
+        self.optimizer = optimizer
+        self.schedule = schedule
+        self.loss_fn = loss_fn
+        self.grad_clip = grad_clip
+        self.generator = generator
+        self.count = 0
+        self._trainable = [p for g in optimizer.param_groups
+                           for p in g["params"]]
+
+    def __call__(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        self.model.train()
+        params = list(self.model.parameters())
+        for p in params:
+            p.grad = None
+        loss = self.loss_fn(self.model, batch, self.generator)
+        loss.backward()
+        gnorm = global_norm([p.grad for p in params if p.grad is not None])
+        if self.grad_clip:
+            grads = [p.grad for p in self._trainable if p.grad is not None]
+            norm = gnorm if len(grads) == len(params) else global_norm(grads)
+            scale = self.grad_clip / norm.clamp(min=self.grad_clip)
+            for g in grads:
+                g.mul_(scale)
+        lr = self.schedule(self.count)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.count += 1
+        return loss.detach(), gnorm

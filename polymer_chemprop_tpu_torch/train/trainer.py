@@ -1,0 +1,460 @@
+"""Per-fold training orchestration (reference train/run_training.py:28-499).
+
+The port's counterpart of polymer_chemprop_tpu train/trainer.py on one
+device: split -> target scaling -> loaders -> per-ensemble-member init (or
+warm start, or resume) -> epoch loop (train epoch, eval val, per-epoch CSV
+logging, every-epoch resume checkpoint, best-model tracking) -> best-model
+test evaluation -> ensemble-averaged test predictions.
+
+The model trains on ``cfg.device``: CUDA unless the caller asks for the
+CPU. Checkpoints are the JAX package's ``.ckpt`` (utils/checkpoint.py),
+optimizer state included, so either package resumes and predicts from the
+other's files.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import os
+import time
+from random import Random
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ..config import TrainConfig
+from ..data import (
+    MoleculeDataLoader,
+    MoleculeDataset,
+    get_data,
+    get_task_names,
+    set_cache_graph,
+    split_data,
+)
+from ..models.convert import (
+    load_jax_params,
+    opt_state_from_leaves,
+    opt_state_to_leaves,
+    params_to_jax,
+)
+from ..models.init import init_model, reference_init_model
+from ..models.model import MoleculeModel, build_model_config
+from ..models.nn import compute_pnorm, param_count
+from ..utils.checkpoint import load_checkpoint, load_opt_leaves, save_checkpoint
+from ..utils.logging import get_logger
+from .evaluate import evaluate
+from .metrics import evaluate_predictions
+from .predict import predict, resolve_device
+from .scheduler import build_optimizer, build_schedule
+from .step import TrainStep, batch_tensors, make_loss_fn
+
+
+def check_training_args(cfg: TrainConfig) -> None:
+    """Raise for what the port cannot train yet (see ROADMAP.md); the
+    unported encoder options raise in EncoderConfig.check_supported."""
+    missing = []
+    if cfg.dataset_type == "spectra":
+        missing.append("spectra training (target normalization and phase "
+                       "masks come with the extra features)")
+    extras = ("features_generator", "features_path", "phase_features_path",
+              "atom_descriptors", "atom_descriptors_path",
+              "bond_features_path", "separate_val_features_path",
+              "separate_test_features_path",
+              "separate_val_phase_features_path",
+              "separate_test_phase_features_path",
+              "separate_val_atom_descriptors_path",
+              "separate_test_atom_descriptors_path",
+              "separate_val_bond_features_path",
+              "separate_test_bond_features_path")
+    used = [k for k in extras if getattr(cfg, k)]
+    if used or cfg.features_only:
+        missing.append("extra feature inputs ("
+                       + ", ".join(used + ["features_only"] * cfg.features_only)
+                       + ")")
+    if cfg.data_parallel or cfg.graph_parallel:
+        missing.append("data_parallel / graph_parallel (one device only)")
+    if cfg.tensorboard:
+        missing.append("tensorboard")
+    if cfg.profile_dir:
+        missing.append("profile_dir")
+    if missing:
+        raise NotImplementedError("not on the port yet: " + "; ".join(missing))
+
+
+def _trainable_mask(model: MoleculeModel, cfg: TrainConfig) -> Dict[str, bool]:
+    """Parameter-freezing mask by parameter name for transfer learning
+    (reference model.py:49-55, 118-121: freeze encoders and/or first FFN
+    layers). checkpoint_frzn alone only warm-starts; the encoder is frozen
+    only when frzn_encoder is set (reference run_training.py:277-288)."""
+    mask = {name: True for name, _ in model.named_parameters()}
+    if cfg.checkpoint_frzn is None:
+        return mask
+    frozen = []
+    if cfg.frzn_encoder:
+        n_enc = 1 if cfg.freeze_first_only else len(model.encoders)
+        frozen += [f"encoders.{i}." for i in range(n_enc)]
+    frozen += [f"ffn.{j}." for j in range(max(cfg.frzn_ffn_layers, 0))]
+    for name in mask:
+        if name.startswith(tuple(frozen)):
+            mask[name] = False
+    return mask
+
+
+def _count_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_count_leaves(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_count_leaves(v) for v in tree)
+    return 1
+
+
+def _merge_matching(params, loaded):
+    """Shape-checked partial parameter load (reference utils.py:116-130)
+    over JAX-layout pytrees: take every leaf from ``loaded`` whose path and
+    shape match ``params``; keep the fresh initialization elsewhere.
+    Returns (merged, used, skipped)."""
+    used = skipped = 0
+
+    def skip(leaf):
+        nonlocal skipped
+        skipped += _count_leaves(leaf)
+        return leaf
+
+    def merge(dst, src):
+        nonlocal used, skipped
+        if isinstance(dst, dict):
+            return {k: merge(dst[k], src[k]) if isinstance(src, dict)
+                    and k in src else skip(dst[k]) for k in dst}
+        if isinstance(dst, list):
+            src_l = src if isinstance(src, list) else []
+            return [merge(d, src_l[i]) if i < len(src_l) else skip(d)
+                    for i, d in enumerate(dst)]
+        if src is not None and not isinstance(src, (dict, list)) \
+                and np.shape(src) == np.shape(dst):
+            used += 1
+            return np.asarray(src)
+        skipped += 1
+        return dst
+
+    return merge(params, loaded), used, skipped
+
+
+def _load_frzn_into(params, frzn_path: str, cfg: TrainConfig):
+    """Overwrite encoder (+ optionally first FFN layers) weights of a
+    JAX-layout pytree from a pretrained checkpoint (reference
+    utils.py:172-261 load_frzn_model)."""
+    frzn_params, _, _, _ = load_checkpoint(frzn_path)
+
+    def copy_matching(dst, src):
+        if isinstance(dst, dict):
+            return {k: copy_matching(dst[k], src[k]) if k in src else dst[k]
+                    for k in dst}
+        if isinstance(dst, list):
+            return [copy_matching(d, s) for d, s in zip(dst, src)] \
+                + dst[len(src):]
+        if src is not None and np.shape(src) == np.shape(dst):
+            return np.asarray(src)
+        return dst
+
+    out = dict(params)
+    if "encoders" in frzn_params:
+        out["encoders"] = copy_matching(params["encoders"],
+                                        frzn_params["encoders"])
+    if cfg.frzn_ffn_layers > 0 and "ffn" in frzn_params:
+        n = cfg.frzn_ffn_layers
+        out["ffn"] = [copy_matching(params["ffn"][i], frzn_params["ffn"][i])
+                      if i < n else params["ffn"][i]
+                      for i in range(len(params["ffn"]))]
+    return out
+
+
+def _split(cfg: TrainConfig, data: MoleculeDataset, fcfg):
+    """(reference run_training.py:57-105)."""
+    if cfg.separate_val_path or cfg.separate_test_path:
+        def separate(path):
+            return get_data(path, cfg.smiles_columns, cfg.target_columns,
+                            cfg.ignore_columns, cfg.number_of_molecules,
+                            fcfg) if path else None
+        val_data = separate(cfg.separate_val_path)
+        test_data = separate(cfg.separate_test_path)
+        split_args = (cfg.seed, cfg.num_folds, cfg.folds_file,
+                      cfg.val_fold_index, cfg.test_fold_index)
+        if val_data is not None and test_data is not None:
+            train_data = data
+        elif val_data is not None:
+            train_data, _, test_data = split_data(
+                data, cfg.split_type, (0.8, 0.0, 0.2), *split_args)
+        else:
+            train_data, val_data, _ = split_data(
+                data, cfg.split_type, (0.8, 0.2, 0.0), *split_args)
+        return train_data, val_data, test_data
+    crossval_sets = None
+    if cfg.crossval_index_file:
+        import pickle
+        with open(cfg.crossval_index_file, "rb") as f:
+            crossval_sets = pickle.load(f)
+    return split_data(
+        data, cfg.split_type, cfg.split_sizes, cfg.seed, cfg.num_folds,
+        cfg.folds_file, cfg.val_fold_index, cfg.test_fold_index,
+        crossval_index_sets=crossval_sets,
+        crossval_index_dir=cfg.crossval_index_dir)
+
+
+def run_training(cfg: TrainConfig, data: MoleculeDataset,
+                 logger=None) -> Dict[str, List[float]]:
+    """Train one fold, return test scores per metric
+    (reference run_training.py:28-499)."""
+    check_training_args(cfg)
+    device = resolve_device(cfg.device)
+    log = logger or get_logger("train", cfg.save_dir, cfg.quiet)
+    debug, info = log.debug, log.info
+    fcfg = cfg.featurization()
+
+    train_data, val_data, test_data = _split(cfg, data, fcfg)
+
+    # train_frac subsampling (reference run_training.py:132-137)
+    if cfg.train_frac < 1.0:
+        n_keep = int(len(train_data) * cfg.train_frac)
+        idx = list(range(len(train_data)))
+        Random(cfg.seed).shuffle(idx)
+        train_data = MoleculeDataset([train_data[i] for i in idx[:n_keep]])
+
+    num_tasks = data.num_tasks or 0
+    info(f"Total size = {len(data):,} | train size = {len(train_data):,} | "
+         f"val size = {len(val_data):,} | test size = {len(test_data):,}")
+
+    if cfg.save_smiles_splits and cfg.save_dir:
+        from ..utils.splits_io import save_smiles_splits
+        save_smiles_splits(cfg.save_dir, train_data, val_data, test_data,
+                           data_path=cfg.data_path,
+                           smiles_columns=cfg.smiles_columns)
+
+    # target scaling (reference run_training.py:143-158)
+    scaler = None
+    if cfg.dataset_type == "regression":
+        debug("Fitting scaler")
+        scaler = train_data.normalize_targets()
+    scalers = {"data_scaler": scaler, "features_scaler": None,
+               "atom_descriptor_scaler": None, "bond_feature_scaler": None}
+
+    # loaders
+    set_cache_graph(len(data) <= cfg.cache_cutoff and not cfg.no_cache_mol)
+    loader_kw = dict(batch_size=cfg.batch_size, num_workers=cfg.num_workers)
+    train_loader = MoleculeDataLoader(
+        train_data, fcfg, shuffle=True, seed=cfg.seed,
+        class_balance=cfg.class_balance, **loader_kw)
+    val_loader = MoleculeDataLoader(val_data, fcfg, **loader_kw)
+    test_loader = MoleculeDataLoader(test_data, fcfg, **loader_kw)
+    # unshuffled train loader for per-epoch train-set evaluation
+    train_eval_loader = MoleculeDataLoader(train_data, fcfg, **loader_kw)
+
+    model_cfg = build_model_config(cfg, num_tasks)
+    save_dir = cfg.save_dir
+    # reference quirk kept for parity: the Noam horizon is built with
+    # steps_per_epoch = train_size // batch_size (FLOOR) although the
+    # trainer steps once per actual batch (ceil), so with a ragged last
+    # batch the rate decays slightly faster than the nominal horizon
+    steps_per_epoch = max(1, len(train_data) // cfg.batch_size)
+
+    try:
+        task_names = get_task_names(
+            cfg.data_path, cfg.smiles_columns, cfg.target_columns,
+            cfg.ignore_columns, cfg.number_of_molecules)
+    except (OSError, ValueError):
+        task_names = []
+    if len(task_names) != num_tasks:
+        task_names = [f"task_{i}" for i in range(num_tasks)]
+
+    # ensemble loop (reference run_training.py:208-436)
+    best_states = []
+    for model_idx in range(cfg.ensemble_size):
+        model_dir = os.path.join(save_dir, f"model_{model_idx}") \
+            if save_dir else None
+        if model_dir:
+            os.makedirs(model_dir, exist_ok=True)
+
+        # reference-stream init: the reference's own initial weights under
+        # torch.manual_seed(pytorch_seed). With dropout > 0 the reference's
+        # later members interleave with training-time draws and cannot be
+        # replayed; those members get a seeded Xavier init.
+        use_ref_init = cfg.reference_init is None or cfg.reference_init
+        if use_ref_init and (cfg.dropout == 0 or model_idx == 0):
+            model = reference_init_model(model_cfg, cfg.pytorch_seed,
+                                         model_idx)
+            debug(f"Model {model_idx}: reference-stream torch init "
+                  f"(pytorch_seed {cfg.pytorch_seed})")
+        else:
+            gen = torch.Generator().manual_seed(
+                cfg.pytorch_seed * 1000003 + model_idx)
+            model = init_model(MoleculeModel(model_cfg), gen)
+        # warm start: only matching-shape parameters are taken
+        if cfg.checkpoint_paths:
+            warm = cfg.checkpoint_paths[model_idx % len(cfg.checkpoint_paths)]
+            loaded, _, _, _ = load_checkpoint(warm)
+            merged, n_used, n_skipped = _merge_matching(params_to_jax(model),
+                                                        loaded)
+            load_jax_params(model, merged)
+            info(f"Warm-started model {model_idx} from {warm} "
+                 f"({n_used} parameters loaded, {n_skipped} kept fresh)")
+        info(f"Number of parameters = {param_count(model.parameters()):,}")
+
+        schedule = build_schedule(
+            cfg.scheduler, init_lr=cfg.init_lr, max_lr=cfg.max_lr,
+            final_lr=cfg.final_lr, warmup_epochs=cfg.warmup_epochs,
+            epochs=cfg.epochs, steps_per_epoch=steps_per_epoch)
+        if cfg.checkpoint_frzn is not None:
+            load_jax_params(model, _load_frzn_into(
+                params_to_jax(model), cfg.checkpoint_frzn, cfg))
+        model.to(device)
+        mask = _trainable_mask(model, cfg)
+        optimizer = build_optimizer(
+            cfg.optimizer,
+            [p for name, p in model.named_parameters() if mask[name]],
+            cfg.weight_decay)
+        target_weights = (torch.as_tensor(cfg.target_weights,
+                                          dtype=torch.float32, device=device)
+                          if cfg.target_weights is not None else None)
+        dropout_gen = None
+        if cfg.dropout > 0:
+            dropout_gen = torch.Generator(device=device).manual_seed(
+                cfg.pytorch_seed * 1000003 + model_idx)
+        train_step = TrainStep(
+            model, optimizer, schedule,
+            make_loss_fn(model_cfg, target_weights,
+                         cfg.alternative_loss_function, None),
+            grad_clip=cfg.grad_clip, generator=dropout_gen)
+
+        start_epoch = 0
+        # full resume (reference run_training.py:241-263)
+        resume_path = None
+        if cfg.resume_from_checkpoint:
+            resume_path = cfg.resume_from_checkpoint
+        elif cfg.resume_experiment and model_dir and \
+                os.path.exists(os.path.join(model_dir, "model.ckpt")):
+            resume_path = os.path.join(model_dir, "model.ckpt")
+        if resume_path and os.path.exists(resume_path):
+            params, _, _, saved_epoch = load_checkpoint(resume_path)
+            load_jax_params(model, params)
+            leaves = load_opt_leaves(resume_path)
+            if leaves is not None:
+                train_step.count = opt_state_from_leaves(model, optimizer,
+                                                         leaves)
+            start_epoch = (saved_epoch or 0) + 1
+            info(f"Resumed from {resume_path} at epoch {start_epoch}")
+
+        # per-epoch CSV metric log (reference run_training.py:212-231)
+        csv_path = os.path.join(model_dir, "train_val_loss_log.csv") \
+            if model_dir else None
+        if csv_path and start_epoch == 0:
+            header = ["epoch", "train_loss"]
+            for metric in cfg.metrics:
+                header += [f"train_avg_{metric}", f"val_avg_{metric}"]
+                header += [f"train_{t}_{metric}" for t in task_names]
+                header += [f"val_{t}_{metric}" for t in task_names]
+            header += ["param_norm", "gradient_norm"]
+            with open(csv_path, "w", newline="") as f:
+                csv.writer(f).writerow(header)
+
+        def snapshot():
+            return {k: v.detach().clone()
+                    for k, v in model.state_dict().items()}
+
+        def save(name, epoch, with_optimizer):
+            save_checkpoint(
+                os.path.join(model_dir, name), params_to_jax(model),
+                cfg.to_dict(), scalers=scalers, epoch=epoch,
+                opt_leaves=opt_state_to_leaves(model, optimizer,
+                                               train_step.count)
+                if with_optimizer else None)
+
+        eval_args = (num_tasks, cfg.metrics, cfg.dataset_type, device, scaler)
+        best_score = float("inf") if cfg.minimize_score else -float("inf")
+        best_epoch = 0
+        best_state = snapshot()
+        for epoch in range(start_epoch, cfg.epochs):
+            losses, gnorms = [], []
+            t_epoch = time.perf_counter()
+            for batch in train_loader:
+                loss, gnorm = train_step(batch_tensors(batch, device))
+                # no per-step readback: the epoch's scalars are fetched in
+                # one stacked transfer below
+                losses.append(loss)
+                gnorms.append(gnorm)
+            if losses:
+                fetched = torch.stack(losses + gnorms).cpu().numpy()
+                losses = fetched[:len(losses)].tolist()
+                gnorms = fetched[len(losses):].tolist()
+            epoch_s = time.perf_counter() - t_epoch
+            val_scores = evaluate(model, val_loader, *eval_args)
+            train_scores = evaluate(model, train_eval_loader, *eval_args) \
+                if csv_path else None
+            avg_val = float(np.nanmean(val_scores[cfg.metric]))
+            mean_loss = float(np.mean(losses)) if losses else float("nan")
+            pnorm = compute_pnorm(model.parameters())
+            mean_gnorm = float(np.mean(gnorms)) if gnorms else float("nan")
+            debug(f"Epoch {epoch}: train loss = {mean_loss:.6f}, "
+                  f"val {cfg.metric} = {avg_val:.6f}, "
+                  f"PNorm = {pnorm:.4f}, GNorm = {mean_gnorm:.4f}, "
+                  f"{len(losses) / max(epoch_s, 1e-9):.1f} steps/s")
+            if csv_path:
+                row = [epoch, mean_loss]
+                for metric in cfg.metrics:
+                    tv, vv = train_scores[metric], val_scores[metric]
+                    row += [float(np.nanmean(tv)), float(np.nanmean(vv))]
+                    row += list(tv) + list(vv)
+                row += [pnorm, mean_gnorm]
+                with open(csv_path, "a", newline="") as f:
+                    csv.writer(f).writerow(row)
+            # every-epoch resume checkpoint (reference run_training.py:404-409)
+            if model_dir:
+                save("model.ckpt", epoch, with_optimizer=True)
+            improved = (avg_val < best_score) if cfg.minimize_score \
+                else (avg_val > best_score)
+            if improved or epoch == start_epoch:
+                best_score, best_epoch = avg_val, epoch
+                best_state = snapshot()
+                if model_dir:
+                    save("best_model.ckpt", epoch, with_optimizer=False)
+
+        info(f"Model {model_idx} best validation {cfg.metric} = "
+             f"{best_score:.6f} on epoch {best_epoch}")
+        best_states.append(best_state)
+
+    # test evaluation with ensemble averaging (run_training.py:440-491)
+    test_targets = test_loader.targets()
+    sum_preds = None
+    for state in best_states:
+        model.load_state_dict(state)
+        preds, _ = predict(model, test_loader, device, scaler=scaler)
+        arr = np.array(preds, dtype=float)
+        sum_preds = arr if sum_preds is None else sum_preds + arr
+        scores = evaluate_predictions(preds, test_targets, num_tasks,
+                                      cfg.metrics, cfg.dataset_type)
+        for metric, vals in scores.items():
+            info(f"Model test {metric} = {np.nanmean(vals):.6f}")
+    avg_preds = (sum_preds / len(best_states)).tolist()
+    ensemble_scores = evaluate_predictions(avg_preds, test_targets, num_tasks,
+                                           cfg.metrics, cfg.dataset_type)
+    for metric, vals in ensemble_scores.items():
+        info(f"Ensemble test {metric} = {np.nanmean(vals):.6f}")
+
+    if save_dir and cfg.save_preds and len(test_data) > 0:
+        _write_test_preds(save_dir, test_data, avg_preds)
+    if save_dir:
+        with open(os.path.join(save_dir, "test_scores.json"), "w") as f:
+            json.dump(ensemble_scores, f, indent=4, sort_keys=True)
+    return ensemble_scores
+
+
+def _write_test_preds(save_dir: str, test_data, avg_preds) -> None:
+    """(reference run_training.py:493-497)."""
+    path = os.path.join(save_dir, "test_preds.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["smiles"] + [f"pred_{i}" for i in
+                                 range(len(avg_preds[0]) if avg_preds else 0)])
+        for d, p in zip(test_data, avg_preds):
+            row_p = p if isinstance(p, list) else [p]
+            w.writerow([".".join(d.smiles)] + row_p)

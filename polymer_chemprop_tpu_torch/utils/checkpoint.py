@@ -1,11 +1,13 @@
 """Read and write the JAX package's ``.ckpt`` checkpoint format.
 
-The port's copy of polymer_chemprop_tpu utils/checkpoint.py:23-133, with
-numpy and zipfile only. A ``.ckpt`` is a zip of ``meta.json`` (train
-config, scalers, epoch) and ``params.npz`` (the flattened parameter
-pytree: ``a/b`` for dict levels, ``0#`` for list items, ``@none`` for
-None leaves). Parameters stay in the JAX layout here (Linear ``w`` is
-``(in, out)``); models/convert.py maps them onto the torch modules.
+The port's copy of polymer_chemprop_tpu utils/checkpoint.py, with numpy
+and zipfile only. A ``.ckpt`` is a zip of ``meta.json`` (train config,
+scalers, epoch), ``params.npz`` (the flattened parameter pytree: ``a/b``
+for dict levels, ``0#`` for list items, ``@none`` for None leaves) and,
+for a resume checkpoint, ``opt.npz``: the optimizer state as the list of
+leaves ``"0", "1", ...`` in the order the JAX package flattens its optax
+state. Parameters and moments stay in the JAX layout here (Linear ``w``
+is ``(in, out)``); models/convert.py maps both onto the torch side.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import io
 import json
 import os
 import zipfile
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -68,9 +70,10 @@ def _unflatten(flat: Dict[str, np.ndarray]):
 
 def save_checkpoint(path: str, params, config_dict: dict,
                     scalers: Optional[Dict[str, Optional[StandardScaler]]] = None,
-                    epoch: Optional[int] = None) -> None:
-    """Write a ``.ckpt`` (zip of params.npz + meta.json) from a pytree of
-    numpy arrays in the JAX layout."""
+                    epoch: Optional[int] = None,
+                    opt_leaves: Optional[List[np.ndarray]] = None) -> None:
+    """Write a ``.ckpt`` (zip of params.npz + meta.json [+ opt.npz]) from
+    a pytree of numpy arrays in the JAX layout."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     meta = {
         "config": config_dict,
@@ -84,6 +87,11 @@ def save_checkpoint(path: str, params, config_dict: dict,
         buf = io.BytesIO()
         np.savez(buf, **_flatten(params))
         zf.writestr("params.npz", buf.getvalue())
+        if opt_leaves is not None:
+            buf = io.BytesIO()
+            np.savez(buf, **{str(i): np.asarray(leaf)
+                             for i, leaf in enumerate(opt_leaves)})
+            zf.writestr("opt.npz", buf.getvalue())
     os.replace(tmp, path)
 
 
@@ -108,3 +116,13 @@ def load_checkpoint(path: str) -> Tuple[Any, Optional[dict],
     scalers = {k: StandardScaler.from_dict(v)
                for k, v in meta.get("scalers", {}).items()}
     return params, meta["config"], scalers, meta.get("epoch")
+
+
+def load_opt_leaves(path: str) -> Optional[List[np.ndarray]]:
+    """The optimizer-state leaves of a resume checkpoint, in file order;
+    None for a checkpoint without optimizer state."""
+    with zipfile.ZipFile(path) as zf:
+        if "opt.npz" not in zf.namelist():
+            return None
+        npz = np.load(io.BytesIO(zf.read("opt.npz")))
+        return [npz[str(i)] for i in range(len(npz.files))]

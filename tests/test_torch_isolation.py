@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, nothing of the JAX package, no
-silent CPU run, and nothing built or required at import time."""
+"""The PyTorch port stands alone: no JAX, optax or scikit-learn, nothing
+of the JAX package, no silent CPU run, and nothing built or required at
+import time."""
 
 import ast
 import os
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "polymer_chemprop_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "optax", "polymer_chemprop_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "sklearn", "polymer_chemprop_tpu")
 
 
 def _port_modules():
@@ -32,6 +33,11 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert "polymer_chemprop_tpu_torch.ops.band_mpnn" in mods
+    # the training modules are covered too
+    for name in ("train.trainer", "train.cross_validate", "train.metrics",
+                 "train.step", "train.scheduler", "train.loss",
+                 "data.splits", "chem.scaffold", "models.init", "cli"):
+        assert f"polymer_chemprop_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -43,6 +49,13 @@ def test_importing_every_port_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_forbidden_names_cover_optax_and_sklearn():
+    assert _forbidden("optax") and _forbidden("sklearn.metrics")
+    assert _forbidden("polymer_chemprop_tpu.train.loss")
+    assert not _forbidden("polymer_chemprop_tpu_torch.train.loss")
+    assert not _forbidden("scipy.stats")
 
 
 @pytest.mark.parametrize("path", ["polymer_chemprop_tpu_torch",
@@ -84,6 +97,22 @@ def test_entry_point_without_device_cpu_raises_here(tmp_path):
                                        checkpoint_path="unused.ckpt"))
 
 
+def test_training_without_device_cpu_raises_here(tmp_path):
+    """Training defaults to CUDA too and raises without a GPU."""
+    import torch
+
+    from polymer_chemprop_tpu_torch.config import TrainConfig
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CUDA default is valid here")
+    cfg = TrainConfig(data_path=os.path.join(ROOT, "tests", "data",
+                                             "regression.csv"),
+                      max_data_size=20, epochs=1, quiet=True)
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        cross_validate(cfg)
+
+
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     """Only a CPU tensor goes to the plain version; a tensor on any other
     device goes to the kernel path (CUDA) or raises."""
@@ -93,6 +122,12 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     m = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         band_mpnn.atom_readout(m, torch.zeros(4, device="meta"),
+                               torch.zeros(3, dtype=torch.int32,
+                                           device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        band_mpnn.band_rev_bwd(m, torch.zeros(4, device="meta"),
+                               torch.zeros(4, dtype=torch.int32,
+                                           device="meta"),
                                torch.zeros(3, dtype=torch.int32,
                                            device="meta"))
 
@@ -105,7 +140,7 @@ def test_kernel_modules_import_without_nvcc(monkeypatch):
     monkeypatch.setenv("PATH", "/nonexistent")
     build = importlib.import_module("polymer_chemprop_tpu_torch.kernels.build")
     importlib.import_module("polymer_chemprop_tpu_torch.ops.band_mpnn")
-    assert build.KERNELS == ("band_rev_layer", "atom_readout")
+    assert build.KERNELS == ("band_rev_layer", "band_rev_bwd", "atom_readout")
     if not os.path.exists("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.nvcc_path()

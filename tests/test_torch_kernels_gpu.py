@@ -84,6 +84,98 @@ def test_atom_readout_matches_plain(cuda, kind, H):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [32, 300, 333])
+def test_band_rev_bwd_matches_plain(cuda, kind, H):
+    g, _, _, a, n_real = _batch(kind, H, cuda)
+    # a cotangent is not zero on padding rows
+    g = g + torch.randn(g.shape, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1))
+    args = (g, a["w_sorted"], a["srev"], a["rowptr"])
+    before = band_mpnn.band_rev_bwd.launches
+    got = band_mpnn.band_rev_bwd(*args)
+    assert band_mpnn.band_rev_bwd.launches == before + 1
+    _close(got, band_mpnn.band_rev_bwd_plain(*args))
+    # padding rows are their own reverse with zero weight: dm = -g
+    assert torch.equal(got[n_real:], -g[n_real:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [32, 300])
+def test_band_rev_layer_writes_z(cuda, kind, H):
+    m, inp, wh, a, n_real = _batch(kind, H, cuda)
+    out, z = band_mpnn.band_rev_layer_forward(
+        m, inp, wh, a["w_sorted"], a["src_sorted"], a["srev"], a["rowptr"],
+        "relu", want_z=True)
+    _close(z, band_mpnn.band_rev_z_plain(m, a["w_sorted"], a["src_sorted"],
+                                         a["srev"], a["rowptr"]))
+    assert (z[n_real:] == 0).all()
+    out_only, none = band_mpnn.band_rev_layer_forward(
+        m, inp, wh, a["w_sorted"], a["src_sorted"], a["srev"], a["rowptr"],
+        "relu", want_z=False)
+    assert none is None and torch.equal(out, out_only)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", band_mpnn.ACT_IDS)
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+def test_function_gradients_match_autograd_through_plain(cuda, kind, act):
+    """(dm, dW_h, dinp) of the layer and dm of the readout, from the
+    hand-written backward with its kernels, against PyTorch's autograd
+    through the plain versions on the card. Tolerance as for the kernels,
+    relative to each gradient's largest entry."""
+    H = 300
+    m, inp, wh, a, _ = _batch(kind, H, cuda)
+    idx = (a["w_sorted"], a["src_sorted"], a["srev"], a["rowptr"])
+    # keep every pre-activation 1e-3 away from 0, where a kinked
+    # activation's derivative would hang on the forward's last rounding
+    pre = inp + band_mpnn.band_rev_z_plain(m, *idx) @ wh
+    inp = torch.where(pre.abs() < 1e-3,
+                      inp + torch.where(pre >= 0, 2e-3, -2e-3), inp)
+    gen = torch.Generator(cuda).manual_seed(2)
+    g_out = torch.randn(m.shape, device=cuda, generator=gen)
+    g_atoms = torch.randn((a["rowptr"].shape[0] - 1, H), device=cuda,
+                          generator=gen)
+
+    def grads(layer, readout):
+        leaves = [t.clone().requires_grad_(True) for t in (m, wh, inp)]
+        out = layer(leaves[0], leaves[2], leaves[1], *idx, act)
+        atoms = readout(out)
+        return torch.autograd.grad(
+            [out, atoms], leaves, [g_out, g_atoms])
+
+    before = band_mpnn.launch_counts()
+    got = grads(band_mpnn.band_rev_layer,
+                lambda x: band_mpnn.atom_readout(
+                    x, a["w_sorted"], a["rowptr"], a["dst_sorted"].long()))
+    after = band_mpnn.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "band_rev_layer": 1, "band_rev_bwd": 1, "atom_readout": 1}
+    want = grads(band_mpnn.band_rev_layer_plain,
+                 lambda x: band_mpnn.atom_readout_plain(x, a["w_sorted"],
+                                                        a["rowptr"]))
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.gpu
+def test_inference_does_not_write_z(cuda, monkeypatch):
+    m, inp, wh, a, _ = _batch("molecules", 32, cuda)
+    seen = []
+    real = band_mpnn.band_rev_layer_forward
+    monkeypatch.setattr(band_mpnn, "band_rev_layer_forward",
+                        lambda *args: seen.append(args[-1]) or real(*args))
+    args = (m, inp, wh, a["w_sorted"], a["src_sorted"], a["srev"],
+            a["rowptr"], "relu")
+    band_mpnn.band_rev_layer(*args)
+    with torch.inference_mode():
+        band_mpnn.band_rev_layer(*args)
+    band_mpnn.band_rev_layer(m.clone().requires_grad_(True), *args[1:])
+    assert seen == [False, False, True]
+
+
+@pytest.mark.gpu
 def test_wrapper_rejects_bad_inputs(cuda):
     m, inp, wh, a, _ = _batch("molecules", 32, cuda)
     with pytest.raises(TypeError):
@@ -92,4 +184,7 @@ def test_wrapper_rejects_bad_inputs(cuda):
                                  "relu")
     with pytest.raises(ValueError, match="contiguous"):
         band_mpnn.atom_readout(m.t().contiguous().t(), a["w_sorted"],
+                               a["rowptr"])
+    with pytest.raises(TypeError):
+        band_mpnn.band_rev_bwd(m, a["w_sorted"], a["srev"].long(),
                                a["rowptr"])

@@ -141,3 +141,25 @@ def test_preds_csv_matches_jax(tmp_path, case):
         rows = _read(got_path)
         assert len(rows) == 4 and rows[2][:3] == ["not_a_smiles((", "b",
                                                   "Invalid SMILES"]
+
+
+@pytest.mark.parametrize("case", ["regression", "polymer"])
+def test_graph_embeddings_match_jax(tmp_path, case):
+    """``save_graph_embeddings``: the ensemble-averaged molecule encodings
+    (the FFN's input) written as .npy, against the JAX package's."""
+    train_kw, make_csv, _, tasks, scaler, _ = CASES[case]
+    test_path = make_csv(tmp_path / "test.csv")
+    ckpt_dir = _write_ckpts(tmp_path, 2, tasks, scaler, **train_kw)
+    paths = {k: str(tmp_path / f"{k}_emb.npy") for k in ("jax", "torch")}
+    jax_make_predictions(JaxPredictConfig(
+        test_path=test_path, preds_path=str(tmp_path / "jax_preds.csv"),
+        checkpoint_dir=ckpt_dir, num_workers=1, save_graph_embeddings=True,
+        graph_embeddings_path=paths["jax"]))
+    make_predictions(PredictConfig(
+        test_path=test_path, preds_path=str(tmp_path / "torch_preds.csv"),
+        checkpoint_dir=ckpt_dir, num_workers=1, device="cpu",
+        save_graph_embeddings=True, graph_embeddings_path=paths["torch"]))
+    got, want = np.load(paths["torch"]), np.load(paths["jax"])
+    assert got.shape == want.shape and got.shape[1] == 64
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
