@@ -21,9 +21,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``torch.autograd.Function``s are held against PyTorch's autograd
    through the plain versions, with the same tolerance relative to each
    gradient's largest entry; padding rows must give dm = -g exactly and
-   add exactly nothing to dW_h. Time kernel, plain version and a PyTorch
-   library yardstick with CUDA events, each launch after an L2 flush, and
-   compute each kernel's bound from this batch.
+   add exactly nothing to dW_h. The four plain-band kernels (``band_agg``,
+   ``band_bwd``, ``band_matmul_act`` with ``z`` on and off,
+   ``band_matmul``) go through the same checks on operands that are not
+   zero on padding rows (``z = -m`` and ``dm = -g`` there, bit for bit),
+   their three Functions' gradients too, and ``band_agg`` / ``band_bwd``
+   once more at hidden 1,600; the Python arithmetic that picks the layer
+   form by shape must equal the libraries' shared-memory answer. Time
+   kernel, plain version and a PyTorch library yardstick with CUDA events,
+   each launch after an L2 flush long enough for the host to run ahead of
+   the device (and each kernel once more from an idle stream, where the
+   time includes the host's way through the wrapper), and compute each
+   kernel's bound from this batch. All seven kernels are timed once more at
+   the training batch's own shape (batch 50).
 3. Serving path: write full-width checkpoints (hidden 300, depth 3, FFN
    2 x 300, seeded random weights) in the JAX package's ``.ckpt`` format,
    one for regression and one for polymer regression, and run the port's
@@ -53,6 +63,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    so is a cached epoch's time by part (loader, H2D, forward, backward,
    optimizer) with the device's busy time from torch.profiler.
 
+5. Plain-band path: at the same width, ``cross_validate`` for 3 epochs on
+   regression.csv and ``make_predictions`` from the checkpoint it wrote,
+   once with ``bias=True`` (layer = ``band_agg`` + W_h in PyTorch) and once
+   with ``undirected=True`` (layer = ``band_matmul_act``), each with exact
+   launch counts (per forward depth - 1 launches of the layer's kernel and
+   one readout, per training step depth - 1 of ``band_bwd``, none of the
+   rev-fused kernels), the first step's loss and gradient norm against the
+   CPU (rtol 1e-4), the test score against the CPU (rtol 1e-2) and the
+   predictions against the CPU (rtol 1e-4, atol 1e-5). One prediction run
+   with bfloat16 linear layers (rtol 2e-3, atol 1e-3 against the CPU: both
+   round the same operands to bfloat16 and accumulate in FP32, and differ
+   where another summation order crosses a rounding boundary) and one at
+   hidden 1,600 (too wide for the fused kernels: ``band_agg``; 100
+   molecules; rtol 1e-4, atol 1e-5). ``band_matmul``, which no encoder
+   configuration reaches, is driven through its public op
+   ``band_matmul_step_sorted``, forward and backward, on the bench batch
+   and held against ``band_message_step_sorted`` followed by a product.
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -76,6 +104,11 @@ HIDDEN, DEPTH, SEED = 300, 3, 0
 BATCH_SIZE = 50          # the CLIs' default
 N_POLYMERS = 200
 TRAIN_EPOCHS = {"regression": 3, "polymer": 2}
+PLAIN_BAND_EPOCHS = 3
+WIDE_HIDDEN, WIDE_MOLECULES = 1600, 100
+REV_KERNELS = ("band_rev_layer", "band_rev_bwd")
+PLAIN_BAND_KERNELS = ("band_agg", "band_bwd", "band_matmul_act",
+                      "band_matmul")
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): FP32 without
 # tensor cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -133,14 +166,24 @@ def bench_batch():
     return gb
 
 
-def timed_ms(label: str, fn, flush: torch.Tensor, reps: int = 20) -> float:
+def timed_ms(label: str, fn, flush: torch.Tensor, reps: int = 20,
+             run_ahead: bool = True) -> float:
     """Median device time of one call, each after an L2 flush; the spread
-    of the launches is logged under ``label``."""
+    of the launches is logged under ``label``.
+
+    With ``run_ahead`` the flush zeroes the whole 1 GiB buffer (about 0.4 ms
+    of device work), so the host has enqueued ``fn``'s launches before the
+    device reaches them and the two events bracket device time only.
+    Without it the flush zeroes 64 MB: the device is idle again when
+    ``fn``'s first launch arrives, and the time includes the host's way
+    through the wrapper (tens of microseconds: what a kernel shorter than
+    that costs a caller who launches it from an idle stream)."""
+    buf = flush if run_ahead else flush[:64 * 2 ** 20 // 4]
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        buf.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -154,10 +197,32 @@ def timed_ms(label: str, fn, flush: torch.Tensor, reps: int = 20) -> float:
     return float(med)
 
 
+def kernel_ms(r: dict, name: str, fn, flush: torch.Tensor,
+              key: str = "ms") -> None:
+    """Both times of one kernel into ``r``: ``key`` with the host running
+    ahead (device time) and ``key + "_idle_start"`` from an idle stream."""
+    r[key] = timed_ms(f"{name} kernel", fn, flush)
+    r[key + "_idle_start"] = timed_ms(f"{name} kernel from an idle stream",
+                                      fn, flush, run_ahead=False)
+
+
 def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_against(r, name, kern, plain, lib, nbytes, ops, flush, shape):
+    """Kernel, plain version and library yardstick timed in turn, and the
+    kernel's bound from ``nbytes`` and ``ops``, into ``r``."""
+    kernel_ms(r, name, kern, flush)
+    r["plain_ms"] = timed_ms(f"{name} plain", plain, flush)
+    r["library_ms"] = timed_ms(f"{name} library", lib, flush)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+    log(f"[time] {name} at {shape}: kernel_ms {r['ms']:.4f} (from an idle "
+        f"stream {r['ms_idle_start']:.4f}) plain_ms {r['plain_ms']:.4f} "
+        f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+        f"({r['bound_by']}: {nbytes} bytes, {ops} operations)")
 
 
 def kernel_phase(dev):
@@ -169,7 +234,7 @@ def kernel_phase(dev):
     A, B = gb.f_atoms.shape[0], gb.f_bonds.shape[0]
     H = HIDDEN
     rng = np.random.default_rng(SEED)
-    flush = torch.empty(64 * 2 ** 20 // 4, device=dev)   # > 50 MB of L2
+    flush = torch.empty(2 ** 30 // 4, device=dev)   # 1 GiB, 20x the L2
     results = {}
     for weights in ("unit", "polymer"):
         w = gb.w_bonds
@@ -279,6 +344,8 @@ def kernel_phase(dev):
                 f"max_abs_err {err:.3e} (tol {tol:.3e})")
             check(err <= tol, "padding rows moved dW_h")
 
+        plain_band_checks(bm, results, weights, T, rng, aux, A, B, H)
+
         if weights != "unit":
             continue
         # timings and bounds at the bench shape, relu, unit weights
@@ -321,29 +388,233 @@ def kernel_phase(dev):
                 ("atom_readout", lambda: bm.atom_readout(m, ws, rp),
                  lambda: bm.atom_readout_plain(m, ws, rp),
                  library_readout, r_bytes, r_ops)):
-            r = results[name]
-            r["ms"] = timed_ms(f"{name} kernel", kern, flush)
-            r["plain_ms"] = timed_ms(f"{name} plain", plain, flush)
-            r["library_ms"] = timed_ms(f"{name} library", lib, flush)
-            r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
-            log(f"[time] {name} at B={B} A={A} H={H}: kernel_ms "
-                f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
-                f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-                f"({r['bound_by']}: {nbytes} bytes, {ops} operations)")
+            time_against(results[name], name, kern, plain, lib, nbytes, ops,
+                         flush, f"B={B} A={A} H={H}")
         r = results["band_rev_layer"]
         r["ms_with_z"] = timed_ms(
             "band_rev_layer kernel with z", lambda: bm.band_rev_layer_forward(m, inp, wh, ws, src, srev, rp,
                                               "relu", want_z=True), flush)
         log(f"[time] band_rev_layer with z written: kernel_ms "
             f"{r['ms_with_z']:.4f} (without: {r['ms']:.4f})")
+        plain_band_timings(bm, results, flush, T, rng, aux, A, B, H)
+    train_batch_timings(bm, results, flush, dev)
     return results, B, A
+
+
+def note_error(results, name, err):
+    r = results.setdefault(name, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+
+
+def plain_band_checks(bm, results, weights, T, rng, aux, A, B, H):
+    """The four plain-band kernels and their three Functions against the
+    plain versions, on operands that are not zero on padding rows."""
+    from polymer_chemprop_tpu_torch.kernels.build import load
+    n_real = int(aux.rowptr[-1])
+    check(n_real < B, "the bench batch has no padding rows")
+    normal = lambda *shape: T(rng.normal(size=shape).astype(np.float32))
+    m, inp, g = normal(B, H), normal(B, H), normal(B, H)
+    wh = T((rng.normal(size=(H, H)) * (2.0 / (2 * H)) ** 0.5)
+           .astype(np.float32))
+    ws, rp = T(aux.w_sorted), T(aux.rowptr)
+
+    def hold(name, what, got, ref):
+        torch.cuda.synchronize()
+        err, tol = (got - ref).abs().max().item(), kernel_tolerance(ref)
+        log(f"[kernel] {what} {weights}: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e})")
+        check(err <= tol, f"{what} disagrees with its plain version")
+        note_error(results, name, err)
+
+    z_ref = bm.band_agg_plain(m, ws, rp)
+    z = bm.band_agg(m, ws, rp)
+    hold("band_agg", "band_agg", z, z_ref)
+    check(torch.equal(z[n_real:], -m[n_real:]),
+          "z of padding rows must equal -m")
+    dm = bm.band_bwd(g, ws, rp)
+    hold("band_bwd", "band_bwd", dm, bm.band_bwd_plain(g, ws, rp))
+    check(torch.equal(dm[n_real:], -g[n_real:]),
+          "dm of padding rows must equal -g")
+    for act in ("relu", "tanh", "selu"):
+        out, z = bm.band_matmul_act_forward(m, inp, wh, ws, rp, act,
+                                            want_z=True)
+        hold("band_matmul_act", f"band_matmul_act {act}", out,
+             bm.band_matmul_act_plain(m, inp, wh, ws, rp, act))
+        hold("band_matmul_act", f"band_matmul_act {act} z", z, z_ref)
+        check(torch.equal(z[n_real:], -m[n_real:]),
+              "band_matmul_act's z of padding rows must equal -m")
+        out_only, none = bm.band_matmul_act_forward(m, inp, wh, ws, rp, act,
+                                                    want_z=False)
+        torch.cuda.synchronize()
+        check(none is None and torch.equal(out_only, out),
+              "band_matmul_act differs with z off")
+    out, z = bm.band_matmul_forward(m, wh, ws, rp)
+    out_ref, _ = bm.band_matmul_plain(m, wh, ws, rp)
+    hold("band_matmul", "band_matmul", out, out_ref)
+    hold("band_matmul", "band_matmul z", z, z_ref)
+    check(torch.equal(z[n_real:], -m[n_real:]),
+          "band_matmul's z of padding rows must equal -m")
+
+    # the three Functions' gradients against autograd through the plain
+    # versions; pre-activations kept 1e-3 away from 0 (see above)
+    pre = inp + z_ref @ wh
+    inp_g = torch.where(pre.abs() < 1e-3,
+                        inp + torch.where(pre >= 0, 2e-3, -2e-3), inp)
+    cases = [("band_agg", (m,), lambda x: bm.band_agg(x, ws, rp),
+              lambda x: bm.band_agg_plain(x, ws, rp)),
+             ("band_matmul", (m, wh), lambda x, w: bm.band_matmul(x, w, ws, rp),
+              lambda x, w: bm.band_matmul_plain(x, w, ws, rp)[0])]
+    for act in ("relu", "tanh"):
+        cases.append((
+            f"band_matmul_act {act}", (m, wh, inp_g),
+            lambda x, w, i, act=act: bm.band_matmul_act(x, i, w, ws, rp, act),
+            lambda x, w, i, act=act: bm.band_matmul_act_plain(x, i, w, ws, rp,
+                                                              act)))
+    for what, operands, fn, plain in cases:
+        def grads(f):
+            leaves = [t.clone().requires_grad_(True) for t in operands]
+            return torch.autograd.grad(f(*leaves), leaves, g)
+
+        got_g, want_g = grads(fn), grads(plain)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dm", "dW_h", "dinp"), got_g, want_g):
+            err, tol = (a - b).abs().max().item(), kernel_tolerance(b)
+            log(f"[grad] {what} {name} {weights}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e})")
+            check(err <= tol, f"{what}: {name} disagrees with autograd "
+                              "through the plain version")
+
+    if weights != "unit":
+        return
+    # the two unfused kernels once at a width the fused ones cannot take
+    wide = 1600
+    mw, gw = normal(B, wide), normal(B, wide)
+    hold("band_agg", f"band_agg H={wide}", bm.band_agg(mw, ws, rp),
+         bm.band_agg_plain(mw, ws, rp))
+    hold("band_bwd", f"band_bwd H={wide}", bm.band_bwd(gw, ws, rp),
+         bm.band_bwd_plain(gw, ws, rp))
+    # the layer form is chosen in Python from the shape alone: that
+    # arithmetic must be the libraries'
+    for width in (32, 300, 1495, 1496, wide, 2400):
+        want = bm.fused_layer_smem_bytes(width)
+        got = (load("band_rev_layer").band_rev_layer_smem_bytes(width),
+               load("band_matmul").band_matmul_smem_bytes(width))
+        check(got == (want, want), f"shared memory at H={width}: the "
+              f"libraries say {got}, Python says {want}")
+        check(bm.fused_layer_fits(width) == (got[0] <= 227 * 1024),
+              f"fused_layer_fits({width})")
+    log(f"[kernel] shared-memory arithmetic agrees with the libraries; the "
+        f"fused kernels fit up to H=1495, H={wide} takes band_agg")
+
+
+def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
+    """Times and bounds of the four plain-band kernels at the bench shape,
+    relu, unit weights."""
+    n_real = int(aux.rowptr[-1])
+    normal = lambda *shape: T(rng.normal(size=shape).astype(np.float32))
+    m, inp, g = normal(B, H), normal(B, H), normal(B, H)
+    wh = T((rng.normal(size=(H, H)) * (2.0 / (2 * H)) ** 0.5)
+           .astype(np.float32))
+    ws, rp = T(aux.w_sorted), T(aux.rowptr)
+    dst = T(aux.dst_sorted.astype(np.int64))
+
+    def library_agg():
+        a = m.new_zeros((A, H)).index_add_(0, dst, m * ws[:, None])
+        return a[dst] - m
+
+    def library_bwd():
+        s = g.new_zeros((A, H)).index_add_(0, dst, g)
+        return ws[:, None] * s[dst] - g
+
+    # m (or g) read once, the result written once, w and rowptr once; one
+    # fma per run element and one subtraction (or negation) per element
+    v_bytes = 4 * (2 * B * H + B + (A + 1))
+    agg_ops = 2 * n_real * H + B * H
+    bwd_ops = 3 * n_real * H + (B - n_real) * H
+    # the fused forms also read inp (band_matmul_act) or write z
+    # (band_matmul) and W_h; the product over all B rows on top
+    f_bytes = 4 * (3 * B * H + H * H + B + (A + 1))
+    act_ops = 2 * B * H * H + 2 * n_real * H + 2 * B * H
+    mm_ops = 2 * B * H * H + 2 * n_real * H + B * H
+    for name, kern, plain, lib, nbytes, ops in (
+            ("band_agg", lambda: bm.band_agg(m, ws, rp),
+             lambda: bm.band_agg_plain(m, ws, rp), library_agg, v_bytes,
+             agg_ops),
+            ("band_bwd", lambda: bm.band_bwd(g, ws, rp),
+             lambda: bm.band_bwd_plain(g, ws, rp), library_bwd, v_bytes,
+             bwd_ops),
+            ("band_matmul_act",
+             lambda: bm.band_matmul_act(m, inp, wh, ws, rp, "relu"),
+             lambda: bm.band_matmul_act_plain(m, inp, wh, ws, rp, "relu"),
+             lambda: torch.relu(torch.addmm(inp, library_agg(), wh)),
+             f_bytes, act_ops),
+            ("band_matmul", lambda: bm.band_matmul_forward(m, wh, ws, rp),
+             lambda: bm.band_matmul_plain(m, wh, ws, rp),
+             lambda: torch.mm(library_agg(), wh), f_bytes, mm_ops)):
+        time_against(results[name], name, kern, plain, lib, nbytes, ops,
+                     flush, f"B={B} A={A} H={H}")
+    r = results["band_matmul_act"]
+    r["ms_with_z"] = timed_ms(
+        "band_matmul_act kernel with z",
+        lambda: bm.band_matmul_act_forward(m, inp, wh, ws, rp, "relu",
+                                           want_z=True), flush)
+    log(f"[time] band_matmul_act with z written: kernel_ms "
+        f"{r['ms_with_z']:.4f} (without: {r['ms']:.4f})")
+    wide = 1600
+    mw = normal(B, wide)
+    for name, fn in (("band_agg", bm.band_agg), ("band_bwd", bm.band_bwd)):
+        r = results[name]
+        r["ms_h1600"] = timed_ms(f"{name} kernel H={wide}",
+                                 lambda: fn(mw, ws, rp), flush)
+        r["bound_ms_h1600"] = bound(4 * (2 * B * wide + B + (A + 1)), 0)[0]
+        log(f"[time] {name} at B={B} H={wide}: kernel_ms "
+            f"{r['ms_h1600']:.4f} bound_ms {r['bound_ms_h1600']:.4f} (bytes)")
+
+
+def train_batch_timings(bm, results, flush, dev):
+    """All seven kernels once more at the shape a training step gives them:
+    the first batch of 50 molecules of regression.csv as the trainer's
+    loader pads it."""
+    from polymer_chemprop_tpu_torch.data import MoleculeDataLoader, get_data
+    from polymer_chemprop_tpu_torch.features import FeaturizationConfig
+    from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
+    fcfg = FeaturizationConfig()
+    data = get_data(os.path.join(ROOT, "tests", "data", "regression.csv"),
+                    config=fcfg, max_data_size=400)
+    loader = MoleculeDataLoader(data, fcfg, batch_size=BATCH_SIZE,
+                                shuffle=True, seed=SEED, num_workers=1)
+    graph = batch_to_tensors(next(iter(loader)).graph_arrays[0], dev)
+    aux = graph["sorted_aux"]
+    B, A, H = graph["f_bonds"].shape[0], graph["f_atoms"].shape[0], HIDDEN
+    gen = torch.Generator(dev).manual_seed(SEED)
+    m, inp, g = (torch.randn((B, H), device=dev, generator=gen)
+                 for _ in range(3))
+    wh = torch.randn((H, H), device=dev, generator=gen) * (1.0 / H) ** 0.5
+    ws, src, srev, rp = (aux["w_sorted"], aux["src_sorted"], aux["srev"],
+                         aux["rowptr"])
+    for name, fn in (
+            ("band_rev_layer",
+             lambda: bm.band_rev_layer(m, inp, wh, ws, src, srev, rp, "relu")),
+            ("band_rev_bwd", lambda: bm.band_rev_bwd(g, ws, srev, rp)),
+            ("atom_readout", lambda: bm.atom_readout(m, ws, rp)),
+            ("band_agg", lambda: bm.band_agg(m, ws, rp)),
+            ("band_bwd", lambda: bm.band_bwd(g, ws, rp)),
+            ("band_matmul_act",
+             lambda: bm.band_matmul_act(m, inp, wh, ws, rp, "relu")),
+            ("band_matmul", lambda: bm.band_matmul_forward(m, wh, ws, rp))):
+        r = results[name]
+        kernel_ms(r, f"{name} at B={B}", fn, flush, key="ms_train_batch")
+        log(f"[time] {name} at the training batch's shape B={B} A={A} "
+            f"H={H}: kernel_ms {r['ms_train_batch']:.4f} (from an idle "
+            f"stream {r['ms_train_batch_idle_start']:.4f})")
 
 
 # -- phase 3 ----------------------------------------------------------------
 
-def write_checkpoint(path, polymer: bool):
+def write_checkpoint(path, polymer: bool, hidden: int = HIDDEN, **options):
     """A full-width checkpoint in the JAX package's .ckpt format, from
-    seeded numpy weights (Xavier-normal, as the JAX init draws them)."""
+    seeded numpy weights (Xavier-normal, as the JAX init draws them).
+    ``options`` are further TrainConfig fields (``param_dtype``)."""
     from polymer_chemprop_tpu_torch.config import TrainConfig
     from polymer_chemprop_tpu_torch.data import StandardScaler
     from polymer_chemprop_tpu_torch.features import FeaturizationConfig
@@ -359,7 +630,7 @@ def write_checkpoint(path, polymer: bool):
         return p
 
     fc = FeaturizationConfig(polymer=polymer)
-    H = HIDDEN
+    H = hidden
     params = {
         "encoders": [{"W_i": linear(fc.bond_fdim(), H, bias=False),
                       "W_h": linear(H, H, bias=False),
@@ -368,7 +639,7 @@ def write_checkpoint(path, polymer: bool):
     }
     tcfg = TrainConfig(hidden_size=H, depth=DEPTH, ffn_num_layers=2,
                        ffn_hidden_size=H, polymer=polymer,
-                       target_columns=["target"], seed=SEED)
+                       target_columns=["target"], seed=SEED, **options)
     scaler = StandardScaler(np.array([0.0]), np.array([2.0]))
     save_checkpoint(path, params, tcfg.to_dict(),
                     scalers={"data_scaler": scaler})
@@ -438,6 +709,7 @@ def main_path(card):
         check(counts["band_rev_layer"] == (DEPTH - 1) * batches, counts)
         check(counts["atom_readout"] == batches, counts)
         check(counts["band_rev_bwd"] == 0, counts)
+        check(all(counts[k] == 0 for k in PLAIN_BAND_KERNELS), counts)
         for k in launches:
             launches[k] += counts[k]
         check(got.shape == want.shape == (n, 1), (got.shape, want.shape))
@@ -619,6 +891,7 @@ def training_path(card):
         check(counts["band_rev_layer"] == (DEPTH - 1) * forwards, counts)
         check(counts["band_rev_bwd"] == (DEPTH - 1) * steps, counts)
         check(counts["atom_readout"] == forwards, counts)
+        check(all(counts[k] == 0 for k in PLAIN_BAND_KERNELS), counts)
         for k in launches:
             launches[k] += counts[k]
 
@@ -664,6 +937,170 @@ def training_path(card):
     return launches
 
 
+# -- phase 5 ----------------------------------------------------------------
+
+def plain_band_path(card, dev):
+    """The encoder configurations whose layer is a plain-band kernel,
+    through the entry points; returns the kernels' launches."""
+    import re
+
+    from polymer_chemprop_tpu_torch.config import PredictConfig, TrainConfig
+    from polymer_chemprop_tpu_torch.features import mol2graph
+    from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    from polymer_chemprop_tpu_torch.train.make_predictions import (
+        make_predictions,
+    )
+    data_path = os.path.join(ROOT, "tests", "data", "regression.csv")
+    smiles = read_smiles(data_path)
+    n = len(smiles)
+    batches = lambda k: math.ceil(k / BATCH_SIZE)
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+
+    def tally(counts, expected):
+        """Exact launch counts: ``expected`` for the kernels it names, 0
+        for every other."""
+        want = dict(dict.fromkeys(counts, 0), **expected)
+        check(counts == want, f"launches {counts}, expected {want}")
+        for k in launches:
+            launches[k] += counts[k]
+
+    def predict(ckpt, test_path, tag, device):
+        return np.asarray(make_predictions(PredictConfig(
+            test_path=test_path, checkpoint_path=ckpt,
+            preds_path=os.path.join(OUT_DIR, f"{tag}_{device}.csv"),
+            batch_size=BATCH_SIZE, num_workers=4, device=device)),
+            dtype=float)
+
+    # training and serving with bias (band_agg) and undirected
+    # (band_matmul_act); band_bwd is the VJP of both
+    for option, layer_kernel in (("bias", "band_agg"),
+                                 ("undirected", "band_matmul_act")):
+        epochs = PLAIN_BAND_EPOCHS
+
+        def config(device):
+            return TrainConfig(
+                data_path=data_path, dataset_type="regression",
+                hidden_size=HIDDEN, depth=DEPTH, ffn_num_layers=2,
+                ffn_hidden_size=HIDDEN, dropout=0.0, epochs=epochs,
+                batch_size=BATCH_SIZE, seed=SEED, num_workers=4, quiet=True,
+                device=device,
+                save_dir=os.path.join(OUT_DIR, f"train_{option}_{device}"),
+                **{option: True})
+
+        cfg = config("cuda")
+        bm.reset_launch_counts()
+        t0 = time.perf_counter()
+        score, _ = cross_validate(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = bm.launch_counts()
+        n_train, n_val = int(0.8 * n), int(0.9 * n) - int(0.8 * n)
+        n_test = n - int(0.9 * n)
+        steps = epochs * batches(n_train)
+        forwards = steps + epochs * (batches(n_val) + batches(n_train)) \
+            + batches(n_test)
+        log(f"[plain-band] {option}: {epochs} epochs, {steps} steps, "
+            f"{forwards} forwards, launches {counts}, test rmse "
+            f"{score:.6f}, {seconds:.3f} s end to end on {card}")
+        tally(counts, {layer_kernel: (DEPTH - 1) * forwards,
+                       "band_bwd": (DEPTH - 1) * steps,
+                       "atom_readout": forwards})
+        check(np.isfinite(score), score)
+        with open(os.path.join(cfg.save_dir, "verbose.log")) as f:
+            rates = [float(x) for x in
+                     re.findall(r"([0-9.]+) steps/s", f.read())][-epochs:]
+        check(len(rates) == epochs, rates)
+        log(f"[plain-band] {option} last epoch (graphs cached): "
+            f"{rates[-1]:.1f} steps/s, "
+            f"{rates[-1] * n_train / batches(n_train):.1f} molecules/s "
+            f"on {card}")
+
+        got, want = first_step(cfg, "cuda"), first_step(config("cpu"), "cpu")
+        log(f"[plain-band] {option}: first step (loss, gnorm) gpu {got} "
+            f"cpu {want}")
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        cpu_score, _ = cross_validate(config("cpu"))
+        log(f"[plain-band] {option}: test rmse gpu {score:.6f} cpu "
+            f"{cpu_score:.6f}")
+        np.testing.assert_allclose(score, cpu_score, rtol=1e-2)
+
+        ckpt = os.path.join(cfg.save_dir, "fold_0", "model_0",
+                            "best_model.ckpt")
+        bm.reset_launch_counts()
+        t0 = time.perf_counter()
+        preds = predict(ckpt, data_path, f"plain_band_{option}", "cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = bm.launch_counts()
+        log(f"[plain-band] {option}: predicted {n} molecules, launches "
+            f"{counts}, {n / seconds:.1f} molecules/s end to end "
+            f"(graphs cached) on {card}")
+        tally(counts, {layer_kernel: (DEPTH - 1) * batches(n),
+                       "atom_readout": batches(n)})
+        want = predict(ckpt, data_path, f"plain_band_{option}", "cpu")
+        check(preds.shape == want.shape == (n, 1), preds.shape)
+        check(np.isfinite(preds).all(), "non-finite predictions")
+        log(f"[plain-band] {option}: predictions max |gpu - cpu| "
+            f"{np.abs(preds - want).max():.3e}")
+        np.testing.assert_allclose(preds, want, rtol=1e-4, atol=1e-5)
+
+    # serving with bfloat16 linear layers, and at a hidden size too wide
+    # for the fused kernels: both take band_agg
+    wide_csv = os.path.join(OUT_DIR, "wide.csv")
+    with open(wide_csv, "w") as f:
+        f.write("smiles\n" + "\n".join(smiles[:WIDE_MOLECULES]) + "\n")
+    for tag, test_path, kw, rtol, atol in (
+            ("bf16", data_path, dict(param_dtype="bf16"), 2e-3, 1e-3),
+            ("wide", wide_csv, dict(hidden=WIDE_HIDDEN), 1e-4, 1e-5)):
+        ckpt = os.path.join(OUT_DIR, tag, "model.ckpt")
+        write_checkpoint(ckpt, polymer=False, **kw)
+        bm.reset_launch_counts()
+        preds = predict(ckpt, test_path, tag, "cuda")
+        torch.cuda.synchronize()
+        counts = bm.launch_counts()
+        k = preds.shape[0]
+        tally(counts, {"band_agg": (DEPTH - 1) * batches(k),
+                       "atom_readout": batches(k)})
+        want = predict(ckpt, test_path, tag, "cpu")
+        check(np.isfinite(preds).all(), "non-finite predictions")
+        log(f"[plain-band] {tag}: {k} molecules, launches {counts}, "
+            f"max |gpu - cpu| {np.abs(preds - want).max():.3e} (rtol {rtol}, "
+            f"atol {atol})")
+        np.testing.assert_allclose(preds, want, rtol=rtol, atol=atol)
+
+    # band_matmul through its public op, forward and backward, on a
+    # featurized batch at full width
+    gb = mol2graph((smiles * 3)[:1024])
+    graph = batch_to_tensors(gb.arrays(sorted_aux=True), dev)
+    aux = graph["sorted_aux"]
+    B = graph["f_bonds"].shape[0]
+    gen = torch.Generator(dev).manual_seed(SEED)
+    m, g = (torch.randn((B, HIDDEN), device=dev, generator=gen)
+            for _ in range(2))
+    wh = torch.randn((HIDDEN, HIDDEN), device=dev, generator=gen) \
+        * (1.0 / HIDDEN) ** 0.5
+
+    def run(op):
+        leaves = [t.clone().requires_grad_(True) for t in (m, wh)]
+        out = op(*leaves)
+        return (out, *torch.autograd.grad(out, leaves, g))
+
+    bm.reset_launch_counts()
+    got = run(lambda x, w: bm.band_matmul_step_sorted(x, w, aux))
+    torch.cuda.synchronize()
+    tally(bm.launch_counts(), {"band_matmul": 1, "band_bwd": 1})
+    want = run(lambda x, w: bm.band_message_step_sorted(x, aux) @ w)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dm", "dW_h"), got, want):
+        err, tol = (a - b).abs().max().item(), kernel_tolerance(b)
+        log(f"[plain-band] band_matmul_step_sorted {name} against band_agg "
+            f"+ product: max_abs_err {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, f"band_matmul_step_sorted {name}")
+    return launches
+
+
 def main() -> int:
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
@@ -678,8 +1115,11 @@ def main() -> int:
     card = card_and_build()
     results, B, A = kernel_phase(dev)
     launches = main_path(card)
-    for name, count in training_path(card).items():
-        launches[name] += count
+    for counts in (training_path(card), plain_band_path(card, dev)):
+        for name, count in counts.items():
+            launches[name] += count
+    check(all(count > 0 for count in launches.values()),
+          f"a kernel was never launched by a main path: {launches}")
     sources = {
         "band_rev_layer": ("polymer_chemprop_tpu_torch/csrc/band_rev_layer.cu",
                            "polymer_chemprop_tpu/ops/pallas_mpnn.py:1009"),
@@ -687,17 +1127,30 @@ def main() -> int:
                          "polymer_chemprop_tpu/ops/pallas_mpnn.py:1074"),
         "atom_readout": ("polymer_chemprop_tpu_torch/csrc/atom_readout.cu",
                          "polymer_chemprop_tpu/ops/pallas_mpnn.py:1278"),
+        "band_matmul_act": ("polymer_chemprop_tpu_torch/csrc/band_matmul.cu",
+                            "polymer_chemprop_tpu/ops/pallas_mpnn.py:834"),
+        "band_bwd": ("polymer_chemprop_tpu_torch/csrc/band_bwd.cu",
+                     "polymer_chemprop_tpu/ops/pallas_mpnn.py:514"),
+        "band_agg": ("polymer_chemprop_tpu_torch/csrc/band_agg.cu",
+                     "polymer_chemprop_tpu/ops/pallas_mpnn.py:455"),
+        "band_matmul": ("polymer_chemprop_tpu_torch/csrc/band_matmul.cu",
+                        "polymer_chemprop_tpu/ops/pallas_mpnn.py:395"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         r = results[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    kernels[0]["ms_with_z"] = results["band_rev_layer"]["ms_with_z"]
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        # further timings of this run: launched from an idle stream, with z
+        # written, at hidden 1,600, at the training batch's shape
+        entry.update({k: r[k] for k in (
+            "ms_idle_start", "ms_with_z", "ms_h1600", "bound_ms_h1600",
+            "ms_train_batch", "ms_train_batch_idle_start") if k in r})
+        kernels.append(entry)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(kernel shape B={B} A={A} H={HIDDEN})")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,41 +23,17 @@
 //   1. A block owns ROWS = 32 consecutive bond rows. Its warps build the
 //      z tile in dynamic shared memory, one row per warp at a time, lanes
 //      over the H columns (coalesced row reads of m).
-//   2. W_h streams through shared memory in KS x 320 slices; each thread
-//      keeps an 8-row x 5-column block of the product in registers
-//      (z reads are warp-wide broadcasts, W reads are conflict-free).
-//   3. The epilogue adds inp, applies the activation and stores out with
-//      consecutive lanes on consecutive columns.
+//   2. The tile-product stage of band_tile.cuh, shared with
+//      band_matmul.cu: W_h streams through shared memory and the epilogue
+//      adds inp, applies the activation and stores out.
 // Padding rows (src 0, own reverse, zero m and inp) come out exactly 0.
 #include <cuda_runtime.h>
 
+#include "band_tile.cuh"
+
 namespace {
 
-constexpr int ROWS = 32;             // bond rows per block
-constexpr int TX = 64;               // threads across output columns
-constexpr int TY = 4;                // threads across rows
-constexpr int THREADS = TX * TY;     // 256
-constexpr int RPT = ROWS / TY;       // rows per thread (8)
-constexpr int NQ = 5;                // column groups per thread
-constexpr int NCHUNK = TX * NQ;      // output columns per pass (320)
-constexpr int KS = 32;               // W_h rows per shared-memory slice
-
-// activation ids: 0 relu, 1 leakyrelu(0.1), 2 prelu as leakyrelu(0.25),
-// 3 tanh, 4 elu, 5 selu (pallas_mpnn.py _ACT_FNS)
-__device__ __forceinline__ float act_fn(float x, int act) {
-  switch (act) {
-    case 0: return fmaxf(x, 0.f);
-    case 1: return x > 0.f ? x : 0.1f * x;
-    case 2: return x > 0.f ? x : 0.25f * x;
-    case 3: return tanhf(x);
-    case 4: return x > 0.f ? x : expm1f(x);
-    default: {
-      const float scale = 1.0507009873554805f;
-      const float alpha = 1.6732632423543772f;
-      return scale * (x > 0.f ? x : alpha * expm1f(x));
-    }
-  }
-}
+using namespace band_tile;
 
 __global__ void __launch_bounds__(THREADS)
 band_rev_layer_kernel(const float* __restrict__ m,
@@ -98,60 +74,8 @@ band_rev_layer_kernel(const float* __restrict__ m,
     }
   }
   __syncthreads();
-  if (z_out != nullptr) {
-    for (int idx = tid; idx < ROWS * H; idx += THREADS) {
-      const int t = row0 + idx / H;
-      if (t < B) z_out[static_cast<size_t>(row0) * H + idx] = z_s[idx];
-    }
-  }
-
-  // 2-3. out = act(inp + z @ W_h), NCHUNK output columns per pass
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  for (int n0 = 0; n0 < H; n0 += NCHUNK) {
-    float acc[RPT][NQ];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) acc[i][q] = 0.f;
-
-    for (int k0 = 0; k0 < H; k0 += KS) {
-      __syncthreads();  // the previous slice is no longer read
-      for (int idx = tid; idx < KS * NCHUNK; idx += THREADS) {
-        const int k = k0 + idx / NCHUNK;
-        const int n = n0 + idx % NCHUNK;
-        w_s[idx] = (k < H && n < H) ? wh[static_cast<size_t>(k) * H + n] : 0.f;
-      }
-      __syncthreads();
-      const int kmax = min(KS, H - k0);
-#pragma unroll 4
-      for (int kk = 0; kk < kmax; ++kk) {
-        float wv[NQ];
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) wv[q] = w_s[kk * NCHUNK + tx + q * TX];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float zv = z_s[(ty * RPT + i) * H + k0 + kk];
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) acc[i][q] = fmaf(zv, wv[q], acc[i][q]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int t = row0 + ty * RPT + i;
-      if (t >= B) continue;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int n = n0 + tx + q * TX;
-        if (n < H) {
-          const size_t o = static_cast<size_t>(t) * H + n;
-          out[o] = act_fn(inp[o] + acc[i][q], act);
-        }
-      }
-    }
-  }
+  if (z_out != nullptr) store_tile(z_s, z_out, row0, B, H);
+  product_stage<true>(z_s, w_s, wh, inp, out, row0, B, H, act);
 }
 
 }  // namespace
@@ -160,7 +84,7 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block needs at hidden width H.
 size_t band_rev_layer_smem_bytes(int H) {
-  return sizeof(float) * (static_cast<size_t>(ROWS) * H + KS * NCHUNK);
+  return band_tile::smem_bytes(H);
 }
 
 // Launches the layer on `stream`; returns cudaGetLastError() as an int.
@@ -173,8 +97,8 @@ int band_rev_layer_f32(const float* m, const float* inp, const float* wh,
       band_rev_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + ROWS - 1) / ROWS;
-  band_rev_layer_kernel<<<blocks, THREADS, smem,
+  const int blocks = (B + band_tile::ROWS - 1) / band_tile::ROWS;
+  band_rev_layer_kernel<<<blocks, band_tile::THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       m, inp, wh, w, src, srev, rowptr, out, z_out, B, H, act);
   return static_cast<int>(cudaGetLastError());

@@ -1,15 +1,17 @@
 """Build the port's CUDA kernels with ``nvcc`` and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
-into ``build/lib<name>-<hash>.so`` at the repository root (``build/`` is
+(with the headers ``csrc/*.cuh`` it may include) into
+``build/lib<name>-<hash>.so`` at the repository root (``build/`` is
 git-ignored), for Hopper only::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The hash is taken over the source and the flags, so an edited kernel is
-rebuilt and a built one is reused. Nothing here runs when the module is
-imported: the CPU tests import it on machines without ``nvcc``.
+The hash is taken over the source, every header in ``csrc/`` and the
+flags, so an edited kernel or header is rebuilt and a built one is reused.
+Nothing here runs when the module is imported: the CPU tests import it on
+machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from typing import Dict, Iterable, List
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
-KERNELS = ("band_rev_layer", "band_rev_bwd", "atom_readout")
+KERNELS = ("band_rev_layer", "band_rev_bwd", "atom_readout", "band_agg",
+           "band_bwd", "band_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -47,8 +50,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -109,5 +115,19 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "atom_readout":
         lib.atom_readout_f32.argtypes = [p, p, p, p, i, i, p]
         lib.atom_readout_f32.restype = i
+    elif name == "band_agg":
+        lib.band_agg_f32.argtypes = [p, p, p, p, i, i, i, p]
+        lib.band_agg_f32.restype = i
+    elif name == "band_bwd":
+        lib.band_bwd_f32.argtypes = [p, p, p, p, i, i, i, p]
+        lib.band_bwd_f32.restype = i
+    elif name == "band_matmul":
+        lib.band_matmul_act_f32.argtypes = [p, p, p, p, p, p, p,
+                                            i, i, i, i, p]
+        lib.band_matmul_act_f32.restype = i
+        lib.band_matmul_f32.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.band_matmul_f32.restype = i
+        lib.band_matmul_smem_bytes.argtypes = [i]
+        lib.band_matmul_smem_bytes.restype = ctypes.c_size_t
     else:
         raise ValueError(f"unknown kernel library {name!r}")

@@ -16,13 +16,35 @@ MPNEncoder (reference mpn.py:14-173):
 Two branches, chosen by the batch:
 
 * with ``"sorted_aux"`` (the loader's default), messages stay in dst-sorted
-  bond order and each layer is one :func:`~..ops.band_mpnn.band_rev_layer`
-  call, followed by one :func:`~..ops.band_mpnn.atom_readout`. On CUDA
-  tensors these launch the hand-written kernels; on CPU tensors they run
-  their plain versions. This mirrors the JAX package's sorted-resident
-  rev-fused branch (encoder.py:188-280).
+  bond order, each layer runs in one of three forms (below), and one
+  :func:`~..ops.band_mpnn.atom_readout` follows. On CUDA tensors these
+  launch the hand-written kernels; on CPU tensors they run their plain
+  versions. This mirrors the JAX package's sorted-resident branch
+  (encoder.py:188-280).
 * without it, the reference branch runs the plain segment sums in natural
   bond order, mirroring the JAX package's XLA branch (encoder.py:281-292).
+
+The layer form of the sorted branch is chosen from the configuration alone
+(:meth:`EncoderConfig.layer_form`), as the JAX package chooses it
+(encoder.py:207-259), so the CPU takes the same form as the card:
+
+* ``"rev"``: no bias, float32, directed, and a hidden size whose tile fits
+  a block's shared memory: one :func:`~..ops.band_mpnn.band_rev_layer` call
+  per layer, no gather.
+* ``"matmul_act"``: the same but ``undirected``: the messages are
+  symmetrized with their reverses before each layer, which needs the
+  explicit ``srev`` gather, so the layer is
+  :func:`~..ops.band_mpnn.band_matmul_act_step_sorted` on the residual
+  pre-permuted once before the loop.
+* ``"plain"``: ``bias``, bfloat16 compute or a wider hidden size: the W_h
+  product is not fused; the layer is
+  :func:`~..ops.band_mpnn.band_message_step_sorted` (the plain band
+  aggregation and the ``srev`` gather), then W_h through
+  :func:`~.nn.linear` and the residual and activation in PyTorch ops.
+
+With ``bias`` the padding rows are not zero (``W_i(0) + b``); they lie in no
+atom's run, are their own reverse and carry weight 0, so no real row and no
+atom reads them.
 
 In training mode (``module.train()``) dropout is applied where the JAX
 package applies it (encoder.py:263-266, 291, 304): after every depth-loop
@@ -41,9 +63,15 @@ import torch
 from torch import nn
 
 from ..ops.band_mpnn import atom_readout as atom_readout_sorted
-from ..ops.band_mpnn import band_rev_layer
+from ..ops.band_mpnn import (
+    band_matmul_act_step_sorted,
+    band_message_step_sorted,
+    band_rev_layer,
+    fused_layer_fits,
+    permute_rows,
+)
 from ..ops.segment import atom_readout, bond_message_step, molecule_readout
-from .nn import dropout, get_activation
+from .nn import dropout, get_activation, linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,37 +96,42 @@ class EncoderConfig:
     def check_supported(self) -> None:
         """Raise for the configurations the JAX package sends to kernels the
         port does not have yet (see ROADMAP.md)."""
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: expected "
+                             "'float32' or 'bfloat16'")
         missing = []
         if self.atom_messages:
             missing.append("atom_messages (needs the gather-then-readout "
                            "kernel, pallas_mpnn.py:1455-1538)")
-        if self.undirected:
-            missing.append("undirected (needs the plain band kernel and its "
-                           "VJP, pallas_mpnn.py _band_kernel/_band_bwd_kernel)")
-        if self.bias:
-            missing.append("bias (W_i/W_h biases go through the plain band "
-                           "kernel path, pallas_mpnn.py _band_kernel)")
-        if self.compute_dtype != "float32":
-            missing.append(f"{self.compute_dtype} compute (the kernels are "
-                           "FP32 only)")
         if self.atom_descriptors is not None:
             missing.append("atom_descriptors")
         if missing:
             raise NotImplementedError(
                 "not on the port yet: " + "; ".join(missing))
 
+    def layer_form(self) -> str:
+        """``"rev"``, ``"matmul_act"`` or ``"plain"``: the depth-loop layer
+        of the sorted branch (module docstring), from the shape and the
+        options alone."""
+        fused = (not self.bias and self.compute_dtype == "float32"
+                 and fused_layer_fits(self.hidden_size))
+        if not fused:
+            return "plain"
+        return "matmul_act" if self.undirected else "rev"
+
 
 class MPNEncoder(nn.Module):
-    """One bond-message encoder (reference mpn.py:46-64): W_i, W_h without
-    bias, W_o with bias. Weights use torch's (out, in) layout."""
+    """One bond-message encoder (reference mpn.py:46-64): W_i and W_h with
+    a bias only when ``cfg.bias``, W_o always with one. Weights use torch's
+    (out, in) layout."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         cfg.check_supported()
         self.cfg = cfg
         H = cfg.hidden_size
-        self.W_i = nn.Linear(cfg.bond_fdim, H, bias=False)
-        self.W_h = nn.Linear(H, H, bias=False)
+        self.W_i = nn.Linear(cfg.bond_fdim, H, bias=cfg.bias)
+        self.W_h = nn.Linear(H, H, bias=cfg.bias)
         self.W_o = nn.Linear(cfg.atom_fdim + H, H, bias=True)
         self.act_name = cfg.activation.lower()
         self.act = get_activation(self.act_name)
@@ -112,31 +145,52 @@ class MPNEncoder(nn.Module):
         def drop(x):
             return dropout(x, cfg.dropout, self.training, generator)
 
+        bf16 = cfg.compute_dtype == "bfloat16"
         f_atoms = batch["f_atoms"]
         num_atoms = f_atoms.shape[0]
-        inputs = self.W_i(batch["f_bonds"])
+        inputs = linear(self.W_i, batch["f_bonds"], bf16)
         message = self.act(inputs)
         aux = batch.get("sorted_aux")
         if aux is not None:
             # f_bonds arrive dst-sorted; messages stay sorted throughout
-            wh = self.W_h.weight.t().contiguous()  # (in, out) for the kernel
+            form = cfg.layer_form()
+            srev = aux["srev"]
+            if form != "plain" and cfg.depth > 1:
+                # (in, out) for the kernels
+                wh = self.W_h.weight.t().contiguous()
+            if form == "matmul_act" and cfg.depth > 1:
+                # act(inputs + x[srev]) == act(inputs[srev] + x)[srev]; the
+                # permuted residual is the same for every layer
+                inputs_srev = permute_rows(inputs, srev, srev)
             for _ in range(cfg.depth - 1):
-                message = band_rev_layer(message, inputs, wh, aux["w_sorted"],
-                                         aux["src_sorted"], aux["srev"],
-                                         aux["rowptr"], self.act_name)
+                if cfg.undirected:
+                    message = (message + permute_rows(message, srev, srev)) / 2
+                if form == "rev":
+                    message = band_rev_layer(
+                        message, inputs, wh, aux["w_sorted"],
+                        aux["src_sorted"], srev, aux["rowptr"], self.act_name)
+                elif form == "matmul_act":
+                    message = band_matmul_act_step_sorted(
+                        message, wh, inputs_srev, aux, self.act_name)
+                else:
+                    message = band_message_step_sorted(message, aux)
+                    message = self.act(inputs + linear(self.W_h, message, bf16))
                 message = drop(message)
             a_message = atom_readout_sorted(message, aux["w_sorted"],
                                             aux["rowptr"], aux["dst_sorted"])
         else:
             w_bonds, b2dst = batch["w_bonds"], batch["b2dst"]
             for _ in range(cfg.depth - 1):
+                if cfg.undirected:
+                    message = (message + message[batch["b2revb"]]) / 2
                 message = bond_message_step(message, w_bonds, batch["b2a"],
                                             b2dst, batch["b2revb"], num_atoms)
                 # layer-0 residual (mpn.py:123)
-                message = drop(self.act(inputs + self.W_h(message)))
+                message = drop(self.act(
+                    inputs + linear(self.W_h, message, bf16)))
             a_message = atom_readout(message, w_bonds, b2dst, num_atoms)
-        atom_hiddens = drop(
-            self.act(self.W_o(torch.cat([f_atoms, a_message], 1))))
+        atom_hiddens = drop(self.act(
+            linear(self.W_o, torch.cat([f_atoms, a_message], 1), bf16)))
         return molecule_readout(atom_hiddens, batch["w_atoms"],
                                 batch["a2mol"],
                                 batch["degree_of_polym"].shape[0],

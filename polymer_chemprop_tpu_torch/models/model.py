@@ -17,7 +17,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from .encoder import EncoderConfig, MPNEncoder
-from .nn import dropout, get_activation
+from .nn import dropout, get_activation, linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,12 +124,13 @@ class MoleculeModel(nn.Module):
         training mode the FFN is dropout -> linear [-> act -> dropout ->
         linear]* (reference model.py:79-100), masks from ``generator``."""
         emb = self.encode(batches, generator)
+        bf16 = self.cfg.encoder.compute_dtype == "bfloat16"
         h = emb
         for i, layer in enumerate(self.ffn):
             if i > 0:
                 h = self.act(h)
             h = dropout(h, self.cfg.encoder.dropout, self.training, generator)
-            h = layer(h)
+            h = linear(layer, h, bf16)
         if self.cfg.dataset_type == "spectra":
             h = F.softplus(h) if self.cfg.spectra_activation == "softplus" \
                 else torch.exp(h)

@@ -1,4 +1,4 @@
-"""Small NN building blocks: activations, dropout, parameter norms.
+"""Small NN building blocks: activations, linear, dropout, parameter norms.
 
 Mirrors polymer_chemprop_tpu models/nn.py and the fused kernel epilogues of
 ops/pallas_mpnn.py:365-372 (reference nn_utils.py:11-30, 70-99). PReLU is
@@ -27,6 +27,24 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name not in _ACTIVATIONS:
         raise ValueError(f'Activation "{name}" not supported.')
     return _ACTIVATIONS[name]
+
+
+def linear(layer: torch.nn.Linear, x: torch.Tensor,
+           bf16: bool = False) -> torch.Tensor:
+    """Dense layer ``x @ W^T + b``. With ``bf16`` it has the meaning of the
+    JAX package's mixed-precision ``linear`` (models/nn.py:52-65): input and
+    weight are rounded to bfloat16, the product is accumulated and returned
+    in float32, and the bias is added in float32. Parameters stay float32.
+
+    The rounded operands are multiplied as float32 tensors, which gives
+    that meaning on both devices (a product of two bfloat16 tensors would
+    round its result to bfloat16 as well). Autograd through the two casts
+    rounds the operands' gradients to bfloat16, as jax.grad does."""
+    if not bf16:
+        return layer(x)
+    y = x.to(torch.bfloat16).float() @ \
+        layer.weight.to(torch.bfloat16).float().t()
+    return y if layer.bias is None else y + layer.bias
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,

@@ -12,21 +12,39 @@
   (csrc/atom_readout.cu; replaces ``_atom_band_kernel``). Differentiable
   in ``m``.
 
+* :func:`band_agg`: the plain band aggregation ``z = S m - m``,
+  ``z[c] = sum_{c' in run(dst c)} w[c'] m[c'] - m[c]`` (csrc/band_agg.cu;
+  replaces ``_band_kernel``). Differentiable in ``m``.
+* :func:`band_bwd`: ``dm = S^T g - g``,
+  ``dm[c] = w[c] * sum_{b in run(dst c)} g[b] - g[c]``, the VJP of the plain
+  band aggregation in every form (csrc/band_bwd.cu; replaces
+  ``_band_bwd_kernel``).
+* :func:`band_matmul_act`: ``act(inp_srev + z @ W_h)`` with ``z = S m - m``
+  (csrc/band_matmul.cu; replaces ``_band_matmul_act_kernel``), and
+  :func:`band_matmul`: ``z @ W_h`` (the same source's second entry point;
+  replaces ``_band_matmul_kernel``). Differentiable in ``m``, ``W_h`` and
+  ``inp_srev``.
+* :func:`band_message_step_sorted`, :func:`band_matmul_step_sorted` and
+  :func:`band_matmul_act_step_sorted`: the JAX package's public ops of the
+  same names, each one of the above followed by the ``srev`` row gather
+  :func:`permute_rows`, which stays outside the kernels.
+
 ``run(v)`` is the CSR run ``[rowptr[v], rowptr[v + 1])`` of
-:mod:`.sorted_aux`. A wrapper given CPU tensors computes the plain PyTorch
-version beside it; given CUDA tensors it launches its kernel on the current
-stream or raises. There is no fallback from one to the other. Each wrapper
-counts its kernel launches in ``<wrapper>.launches``.
+:mod:`.sorted_aux`. Padding rows lie in no run: the plain band forms give
+them ``z = -m`` and ``dm = -g``. A wrapper given CPU tensors computes the
+plain PyTorch version beside it; given CUDA tensors it launches its kernel
+on the current stream or raises. There is no fallback from one to the
+other. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 The gradients are hand-written ``torch.autograd.Function``s that mirror the
-JAX package's ``custom_vjp``s (pallas_mpnn.py:1251-1274, 1378-1395) and run
-the same formulas on both devices: on CPU tensors only the kernels are
-replaced by their plain versions.
+JAX package's ``custom_vjp``s (pallas_mpnn.py:664-676, 806-829, 966-986,
+1251-1274, 1378-1395) and run the same formulas on both devices: on CPU
+tensors only the kernels are replaced by their plain versions.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,6 +55,26 @@ ACT_IDS = {"relu": 0, "leakyrelu": 1, "prelu": 2, "tanh": 3, "elu": 4,
            "selu": 5}
 _SELU_L = 1.0507009873554805
 _SELU_AL = 1.6732632423543772 * _SELU_L
+
+
+# tile geometry of csrc/band_tile.cuh (ROWS, KS, NCHUNK) and the shared
+# memory one block may use on Hopper
+_TILE_ROWS, _TILE_KS, _TILE_NCHUNK = 32, 32, 320
+SMEM_PER_BLOCK = 227 * 1024
+
+
+def fused_layer_smem_bytes(hidden: int) -> int:
+    """Dynamic shared memory the W_h-fused kernels need at width
+    ``hidden``: the arithmetic of band_tile.cuh ``smem_bytes``."""
+    return 4 * (_TILE_ROWS * hidden + _TILE_KS * _TILE_NCHUNK + _TILE_ROWS)
+
+
+def fused_layer_fits(hidden: int) -> bool:
+    """Whether the W_h-fused kernels (band_rev_layer, band_matmul_act,
+    band_matmul) can hold their z tile at this width (up to 1,495). Decided
+    from the shape alone, so the CPU takes the same layer form as the
+    card."""
+    return fused_layer_smem_bytes(hidden) <= SMEM_PER_BLOCK
 
 
 def act_grad_from_output(act: str, a: torch.Tensor) -> torch.Tensor:
@@ -108,6 +146,40 @@ def band_rev_bwd_plain(g: torch.Tensor, w_sorted: torch.Tensor,
     return dm
 
 
+def band_agg_plain(m: torch.Tensor, w_sorted: torch.Tensor,
+                   rowptr: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`band_agg`: ``z = S m - m``."""
+    n = int(rowptr[-1])
+    a = atom_readout_plain(m, w_sorted, rowptr)
+    return torch.cat([a[_csr_rows(rowptr)] - m[:n], -m[n:]])
+
+
+def band_bwd_plain(g: torch.Tensor, w_sorted: torch.Tensor,
+                   rowptr: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`band_bwd`: ``dm = w o (K g) - g``."""
+    A = rowptr.shape[0] - 1
+    n = int(rowptr[-1])
+    rows = _csr_rows(rowptr)
+    s = g.new_zeros((A, g.shape[1])).index_add_(0, rows, g[:n])
+    return torch.cat([w_sorted[:n, None] * s[rows] - g[:n], -g[n:]])
+
+
+def band_matmul_plain(m: torch.Tensor, wh: torch.Tensor,
+                      w_sorted: torch.Tensor, rowptr: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`band_matmul_forward`: ``(z @ W_h, z)``."""
+    z = band_agg_plain(m, w_sorted, rowptr)
+    return z @ wh, z
+
+
+def band_matmul_act_plain(m: torch.Tensor, inp_srev: torch.Tensor,
+                          wh: torch.Tensor, w_sorted: torch.Tensor,
+                          rowptr: torch.Tensor, act: str) -> torch.Tensor:
+    """Plain version of :func:`band_matmul_act`."""
+    z = band_agg_plain(m, w_sorted, rowptr)
+    return get_activation(act)(inp_srev + z @ wh)
+
+
 # -- wrappers ----------------------------------------------------------------
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -125,6 +197,15 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 def _raise_on(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
+
+
+def _check_fits(kernel: str, hidden: int) -> None:
+    if not fused_layer_fits(hidden):
+        raise ValueError(
+            f"{kernel}: hidden size {hidden} needs "
+            f"{fused_layer_smem_bytes(hidden)} bytes of shared memory, more "
+            f"than a block's {SMEM_PER_BLOCK}; the encoder takes the unfused "
+            "layer form (band_agg) at this width")
 
 
 def band_rev_layer_forward(m: torch.Tensor, inp: torch.Tensor,
@@ -151,12 +232,9 @@ def band_rev_layer_forward(m: torch.Tensor, inp: torch.Tensor,
     _check("src_sorted", src_sorted, (B,), torch.int32, dev)
     _check("srev", srev, (B,), torch.int32, dev)
     _check("rowptr", rowptr, (rowptr.shape[0],), torch.int32, dev)
+    _check_fits("band_rev_layer", H)
     from ..kernels.build import load
     lib = load("band_rev_layer")
-    if lib.band_rev_layer_smem_bytes(H) > 227 * 1024:
-        raise NotImplementedError(
-            f"band_rev_layer: hidden size {H} needs more shared memory than "
-            "a block has; wide layers need a column-chunked kernel")
     out = torch.empty_like(m)
     z = torch.empty_like(m) if want_z else None
     with torch.cuda.device(dev):
@@ -226,6 +304,127 @@ def _atom_readout_forward(m: torch.Tensor, w_sorted: torch.Tensor,
     return out
 
 
+def _band_rows_launch(kernel: str, x: torch.Tensor, w_sorted: torch.Tensor,
+                      rowptr: torch.Tensor) -> torch.Tensor:
+    """Checks, allocation and launch shared by csrc/band_agg.cu and
+    csrc/band_bwd.cu, whose entry points ``<kernel>_f32`` take the same
+    arguments: (B, H) rows in, (B, H) rows out."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {x.device}")
+    B, H = x.shape
+    A = rowptr.shape[0] - 1
+    dev = x.device
+    _check("m" if kernel == "band_agg" else "g", x, (B, H), torch.float32,
+           dev)
+    _check("w_sorted", w_sorted, (B,), torch.float32, dev)
+    _check("rowptr", rowptr, (A + 1,), torch.int32, dev)
+    from ..kernels.build import load
+    lib = load(kernel)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, f"{kernel}_f32")(
+            x.data_ptr(), w_sorted.data_ptr(), rowptr.data_ptr(),
+            out.data_ptr(), A, B, H, stream)
+    _raise_on(err, kernel)
+    return out
+
+
+def _band_agg_forward(m: torch.Tensor, w_sorted: torch.Tensor,
+                      rowptr: torch.Tensor) -> torch.Tensor:
+    if m.device.type == "cpu":
+        return band_agg_plain(m, w_sorted, rowptr)
+    z = _band_rows_launch("band_agg", m, w_sorted, rowptr)
+    band_agg.launches += 1
+    return z
+
+
+def band_bwd(g: torch.Tensor, w_sorted: torch.Tensor,
+             rowptr: torch.Tensor) -> torch.Tensor:
+    """``dm = S^T g - g``, the VJP of the plain band aggregation
+    ``z = S m - m``: the run's cotangents summed with unit weights, scaled
+    by the row's own weight.
+
+    g: (B, H) f32; w_sorted: (B,) f32; rowptr: (A + 1,) int32. Padding rows
+    come out as ``-g``."""
+    if g.device.type == "cpu":
+        return band_bwd_plain(g, w_sorted, rowptr)
+    dm = _band_rows_launch("band_bwd", g, w_sorted, rowptr)
+    band_bwd.launches += 1
+    return dm
+
+
+def _band_matmul_launch(kernel: str, m: torch.Tensor,
+                        inp_srev: Optional[torch.Tensor], wh: torch.Tensor,
+                        w_sorted: torch.Tensor, rowptr: torch.Tensor,
+                        act_id: int, want_z: bool
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Checks, allocation and launch shared by the two entry points of
+    csrc/band_matmul.cu; ``inp_srev`` None selects ``band_matmul_f32``."""
+    if m.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {m.device}")
+    B, H = m.shape
+    A = rowptr.shape[0] - 1
+    dev = m.device
+    _check("m", m, (B, H), torch.float32, dev)
+    if inp_srev is not None:
+        _check("inp_srev", inp_srev, (B, H), torch.float32, dev)
+    _check("wh", wh, (H, H), torch.float32, dev)
+    _check("w_sorted", w_sorted, (B,), torch.float32, dev)
+    _check("rowptr", rowptr, (A + 1,), torch.int32, dev)
+    _check_fits(kernel, H)
+    from ..kernels.build import load
+    lib = load("band_matmul")
+    out = torch.empty_like(m)
+    z = torch.empty_like(m) if want_z else None
+    z_ptr = z.data_ptr() if want_z else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if inp_srev is None:
+            err = lib.band_matmul_f32(
+                m.data_ptr(), wh.data_ptr(), w_sorted.data_ptr(),
+                rowptr.data_ptr(), out.data_ptr(), z_ptr, A, B, H, stream)
+        else:
+            err = lib.band_matmul_act_f32(
+                m.data_ptr(), inp_srev.data_ptr(), wh.data_ptr(),
+                w_sorted.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+                z_ptr, A, B, H, act_id, stream)
+    _raise_on(err, kernel)
+    return out, z
+
+
+def band_matmul_act_forward(m: torch.Tensor, inp_srev: torch.Tensor,
+                            wh: torch.Tensor, w_sorted: torch.Tensor,
+                            rowptr: torch.Tensor, act: str, want_z: bool
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`band_matmul_act` without autograd: ``(out, z)`` with
+    ``z = S m - m`` written only when ``want_z`` (training), else
+    ``(out, None)``."""
+    act = act.lower()
+    if act not in ACT_IDS:
+        raise ValueError(f'Activation "{act}" not supported.')
+    if m.device.type == "cpu":
+        z = band_agg_plain(m, w_sorted, rowptr)
+        return get_activation(act)(inp_srev + z @ wh), (z if want_z else None)
+    out, z = _band_matmul_launch("band_matmul_act", m, inp_srev, wh, w_sorted,
+                                 rowptr, ACT_IDS[act], want_z)
+    band_matmul_act.launches += 1
+    return out, z
+
+
+def band_matmul_forward(m: torch.Tensor, wh: torch.Tensor,
+                        w_sorted: torch.Tensor, rowptr: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`band_matmul` without autograd: ``(z @ W_h, z)`` with
+    ``z = S m - m``; both are always written, as by the TPU kernel."""
+    if m.device.type == "cpu":
+        return band_matmul_plain(m, wh, w_sorted, rowptr)
+    out, z = _band_matmul_launch("band_matmul", m, None, wh, w_sorted, rowptr,
+                                 0, True)
+    band_matmul.launches += 1
+    return out, z
+
+
 # -- autograd ----------------------------------------------------------------
 
 class _BandRevLayerFn(torch.autograd.Function):
@@ -273,6 +472,89 @@ class _AtomReadoutFn(torch.autograd.Function):
         return w_sorted[:, None] * g[dst_sorted.long()], None, None, None
 
 
+class _BandAggFn(torch.autograd.Function):
+    """``z = S m - m`` with the VJP of ``_band_op``: ``dm = band_bwd(g)``."""
+
+    @staticmethod
+    def forward(ctx, m, w_sorted, rowptr):
+        ctx.save_for_backward(w_sorted, rowptr)
+        return _band_agg_forward(m, w_sorted, rowptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_sorted, rowptr = ctx.saved_tensors
+        return band_bwd(g.contiguous(), w_sorted, rowptr), None, None
+
+
+def _band_matmul_vjp(g_pre, z, wh, w_sorted, rowptr, need_m, need_wh):
+    """``(dm, dW_h)`` of ``z @ W_h`` with ``z = S m - m`` for the cotangent
+    ``g_pre`` of the product: ``dW_h = z^T g_pre``,
+    ``dm = band_bwd(g_pre @ W_h^T)``."""
+    dwh = z.t() @ g_pre if need_wh else None
+    dm = None
+    if need_m:
+        dm = band_bwd((g_pre @ wh.t()).contiguous(), w_sorted, rowptr)
+    return dm, dwh
+
+
+class _BandMatmulActFn(torch.autograd.Function):
+    """``act(inp_srev + (S m - m) @ W_h)`` with the VJP of
+    band_matmul_act_step_sorted: ``z`` is written only when a gradient is
+    wanted, and the activation's derivative is taken from the output."""
+
+    @staticmethod
+    def forward(ctx, m, wh, inp_srev, w_sorted, rowptr, act):
+        want_z = any(ctx.needs_input_grad[:3])
+        out, z = band_matmul_act_forward(m, inp_srev, wh, w_sorted, rowptr,
+                                         act, want_z)
+        if want_z:
+            ctx.save_for_backward(z, wh, out, w_sorted, rowptr)
+            ctx.act = act.lower()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        z, wh, out, w_sorted, rowptr = ctx.saved_tensors
+        need_m, need_wh, need_inp = ctx.needs_input_grad[:3]
+        g_pre = g * act_grad_from_output(ctx.act, out)
+        dm, dwh = _band_matmul_vjp(g_pre, z, wh, w_sorted, rowptr, need_m,
+                                   need_wh)
+        return dm, dwh, g_pre if need_inp else None, None, None, None
+
+
+class _BandMatmulFn(torch.autograd.Function):
+    """``(S m - m) @ W_h`` with the VJP of band_matmul_step_sorted."""
+
+    @staticmethod
+    def forward(ctx, m, wh, w_sorted, rowptr):
+        out, z = band_matmul_forward(m, wh, w_sorted, rowptr)
+        ctx.save_for_backward(z, wh, w_sorted, rowptr)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        z, wh, w_sorted, rowptr = ctx.saved_tensors
+        need_m, need_wh = ctx.needs_input_grad[:2]
+        dm, dwh = _band_matmul_vjp(g, z, wh, w_sorted, rowptr, need_m,
+                                   need_wh)
+        return dm, dwh, None, None
+
+
+class _PermuteRowsFn(torch.autograd.Function):
+    """``x[idx]`` for a permutation ``idx`` with inverse ``inv_idx``; the
+    backward is the gather ``g[inv_idx]``, never a scatter."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv_idx):
+        ctx.save_for_backward(inv_idx)
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv_idx, = ctx.saved_tensors
+        return g.index_select(0, inv_idx), None, None
+
+
 def band_rev_layer(m: torch.Tensor, inp: torch.Tensor, wh: torch.Tensor,
                    w_sorted: torch.Tensor, src_sorted: torch.Tensor,
                    srev: torch.Tensor, rowptr: torch.Tensor,
@@ -302,10 +584,77 @@ def atom_readout(m: torch.Tensor, w_sorted: torch.Tensor,
     return _AtomReadoutFn.apply(m, w_sorted, rowptr, dst_sorted)
 
 
-band_rev_layer.launches = 0
-band_rev_bwd.launches = 0
-atom_readout.launches = 0
-WRAPPERS = (band_rev_layer, band_rev_bwd, atom_readout)
+def permute_rows(x: torch.Tensor, idx: torch.Tensor,
+                 inv_idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for a row permutation ``idx`` (int32 or int64) with
+    inverse ``inv_idx``; differentiable by the gather ``g[inv_idx]``
+    (pallas_mpnn.py permute_rows). ``srev`` is its own inverse."""
+    return _PermuteRowsFn.apply(x, idx, inv_idx)
+
+
+def band_agg(m: torch.Tensor, w_sorted: torch.Tensor,
+             rowptr: torch.Tensor) -> torch.Tensor:
+    """The plain band aggregation over dst-sorted bonds, ``z = S m - m``:
+    each row gets its destination atom's weighted incoming sum minus
+    itself; padding rows get ``-m``.
+
+    m: (B, H) f32; w_sorted: (B,) f32; rowptr: (A + 1,) int32."""
+    return _BandAggFn.apply(m, w_sorted, rowptr)
+
+
+def band_matmul_act(m: torch.Tensor, inp_srev: torch.Tensor,
+                    wh: torch.Tensor, w_sorted: torch.Tensor,
+                    rowptr: torch.Tensor, act: str) -> torch.Tensor:
+    """``act(inp_srev + (S m - m) @ W_h)``: the plain band aggregation with
+    the update product, the residual and the activation in one kernel.
+
+    m, inp_srev: (B, H) f32; wh: (H, H) f32 in (in, out) layout; w_sorted:
+    (B,) f32; rowptr: (A + 1,) int32."""
+    return _BandMatmulActFn.apply(m, wh, inp_srev, w_sorted, rowptr, act)
+
+
+def band_matmul(m: torch.Tensor, wh: torch.Tensor, w_sorted: torch.Tensor,
+                rowptr: torch.Tensor) -> torch.Tensor:
+    """``(S m - m) @ W_h``: the plain band aggregation with the update
+    product in one kernel, no residual and no activation. Shapes as for
+    :func:`band_matmul_act`."""
+    return _BandMatmulFn.apply(m, wh, w_sorted, rowptr)
+
+
+def band_message_step_sorted(m: torch.Tensor,
+                             aux: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """New message in sorted order, ``(S m - m)[srev]``: :func:`band_agg`
+    then the reverse-bond gather. ``aux`` holds the batch's ``w_sorted``,
+    ``rowptr`` and ``srev`` tensors (:mod:`.sorted_aux`)."""
+    z = band_agg(m, aux["w_sorted"], aux["rowptr"])
+    return permute_rows(z, aux["srev"], aux["srev"])
+
+
+def band_matmul_step_sorted(m: torch.Tensor, wh: torch.Tensor,
+                            aux: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``((S m - m) @ W_h)[srev]``: :func:`band_matmul` then the
+    reverse-bond gather."""
+    out = band_matmul(m, wh, aux["w_sorted"], aux["rowptr"])
+    return permute_rows(out, aux["srev"], aux["srev"])
+
+
+def band_matmul_act_step_sorted(m: torch.Tensor, wh: torch.Tensor,
+                                inp_srev: torch.Tensor,
+                                aux: Dict[str, torch.Tensor],
+                                act: str) -> torch.Tensor:
+    """One whole layer, ``act(inputs + ((S m - m) @ W_h)[srev])``, computed
+    as ``act(inp_srev + (S m - m) @ W_h)[srev]`` (``srev`` is an
+    involution): :func:`band_matmul_act` on the residual pre-permuted by
+    ``srev``, then the reverse-bond gather."""
+    out = band_matmul_act(m, inp_srev, wh, aux["w_sorted"], aux["rowptr"],
+                          act)
+    return permute_rows(out, aux["srev"], aux["srev"])
+
+
+WRAPPERS = (band_rev_layer, band_rev_bwd, atom_readout, band_agg, band_bwd,
+            band_matmul_act, band_matmul)
+for _fn in WRAPPERS:
+    _fn.launches = 0
 
 
 def reset_launch_counts() -> None:

@@ -179,8 +179,24 @@ def test_shared_encoder_round_trip():
 @pytest.mark.parametrize("field", ["atom_messages", "undirected", "bias",
                                    "compute_dtype", "atom_descriptors"])
 def test_unported_encoder_configs_raise(field):
+    """What is not ported raises; what has been ported since (the
+    plain-band options ``undirected``, ``bias`` and bfloat16 compute) builds
+    and takes the layer form its configuration implies."""
     value = {"compute_dtype": "bfloat16",
              "atom_descriptors": "descriptor"}.get(field, True)
     cfg = EncoderConfig(atom_fdim=133, bond_fdim=147, **{field: value})
+    forms = {"undirected": "matmul_act", "bias": "plain",
+             "compute_dtype": "plain"}
+    if field in forms:
+        model = MoleculeModel(ModelConfig(encoder=cfg))
+        assert cfg.layer_form() == forms[field]
+        assert (model.encoders[0].W_h.bias is not None) == (field == "bias")
+        return
     with pytest.raises(NotImplementedError, match="not on the port yet"):
+        MoleculeModel(ModelConfig(encoder=cfg))
+
+
+def test_unknown_compute_dtype_is_refused():
+    cfg = EncoderConfig(atom_fdim=133, bond_fdim=147, compute_dtype="float16")
+    with pytest.raises(ValueError, match="compute_dtype"):
         MoleculeModel(ModelConfig(encoder=cfg))

@@ -36,7 +36,9 @@ def test_importing_every_port_module_loads_no_jax():
     # the training modules are covered too
     for name in ("train.trainer", "train.cross_validate", "train.metrics",
                  "train.step", "train.scheduler", "train.loss",
-                 "data.splits", "chem.scaffold", "models.init", "cli"):
+                 "data.splits", "chem.scaffold", "models.init", "cli",
+                 "kernels.build", "ops.sorted_aux", "models.encoder",
+                 "models.nn"):
         assert f"polymer_chemprop_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -130,6 +132,20 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
                                            device="meta"),
                                torch.zeros(3, dtype=torch.int32,
                                            device="meta"))
+    # the four plain-band wrappers
+    w = torch.zeros(4, device="meta")
+    rowptr = torch.zeros(3, dtype=torch.int32, device="meta")
+    wh = torch.zeros((8, 8), device="meta")
+    for call in (lambda: band_mpnn.band_agg(m, w, rowptr),
+                 lambda: band_mpnn.band_bwd(m, w, rowptr),
+                 lambda: band_mpnn.band_matmul_act(m, m, wh, w, rowptr,
+                                                   "relu"),
+                 lambda: band_mpnn.band_matmul(m, wh, w, rowptr)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    assert band_mpnn.launch_counts() == dict.fromkeys(
+        ("band_rev_layer", "band_rev_bwd", "atom_readout", "band_agg",
+         "band_bwd", "band_matmul_act", "band_matmul"), 0)
 
 
 def test_kernel_modules_import_without_nvcc(monkeypatch):
@@ -140,7 +156,31 @@ def test_kernel_modules_import_without_nvcc(monkeypatch):
     monkeypatch.setenv("PATH", "/nonexistent")
     build = importlib.import_module("polymer_chemprop_tpu_torch.kernels.build")
     importlib.import_module("polymer_chemprop_tpu_torch.ops.band_mpnn")
-    assert build.KERNELS == ("band_rev_layer", "band_rev_bwd", "atom_readout")
+    assert build.KERNELS == ("band_rev_layer", "band_rev_bwd", "atom_readout",
+                             "band_agg", "band_bwd", "band_matmul")
+    for name in build.KERNELS:
+        assert (build.CSRC_DIR / f"{name}.cu").exists()
     if not os.path.exists("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.nvcc_path()
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """The library's name hashes its source, every header beside it and the
+    flags: an edit of the shared header must not load a stale library."""
+    import shutil
+
+    from polymer_chemprop_tpu_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    before = {k: build.library_path(k).name for k in build.KERNELS}
+    assert before["band_matmul"] != before["band_rev_layer"]
+    with open(csrc / "band_tile.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {k: build.library_path(k).name for k in build.KERNELS}
+    assert all(after[k] != before[k] for k in build.KERNELS)
+    with open(csrc / "band_agg.cu", "a") as f:
+        f.write("// edited\n")
+    last = {k: build.library_path(k).name for k in build.KERNELS}
+    assert [k for k in build.KERNELS if last[k] != after[k]] == ["band_agg"]

@@ -150,7 +150,8 @@ def test_function_gradients_match_autograd_through_plain(cuda, kind, act):
                 lambda x: band_mpnn.atom_readout(
                     x, a["w_sorted"], a["rowptr"], a["dst_sorted"].long()))
     after = band_mpnn.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {
         "band_rev_layer": 1, "band_rev_bwd": 1, "atom_readout": 1}
     want = grads(band_mpnn.band_rev_layer_plain,
                  lambda x: band_mpnn.atom_readout_plain(x, a["w_sorted"],
@@ -175,6 +176,163 @@ def test_inference_does_not_write_z(cuda, monkeypatch):
     assert seen == [False, False, True]
 
 
+# -- the plain-band kernels ------------------------------------------------------
+
+def _plain_band_operands(kind, H, dev):
+    """m, inp, cotangent (none zero on padding rows: a bias makes the
+    encoder's so), wh and the index tensors."""
+    m, inp, wh, a, n_real = _batch(kind, H, dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    noise = lambda: torch.randn(m.shape, device=dev, generator=gen)
+    return m + noise(), inp + noise(), noise(), wh, a, n_real
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [32, 300, 333, 1600])
+def test_band_agg_matches_plain(cuda, kind, H):
+    m, _, _, _, a, n_real = _plain_band_operands(kind, H, cuda)
+    before = band_mpnn.band_agg.launches
+    got = band_mpnn.band_agg(m, a["w_sorted"], a["rowptr"])
+    assert band_mpnn.band_agg.launches == before + 1
+    _close(got, band_mpnn.band_agg_plain(m, a["w_sorted"], a["rowptr"]))
+    # padding rows lie in no run: z = -m, bit for bit
+    assert n_real < m.shape[0]
+    assert torch.equal(got[n_real:], -m[n_real:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [32, 300, 333, 1600])
+def test_band_bwd_matches_plain(cuda, kind, H):
+    _, _, g, _, a, n_real = _plain_band_operands(kind, H, cuda)
+    before = band_mpnn.band_bwd.launches
+    got = band_mpnn.band_bwd(g, a["w_sorted"], a["rowptr"])
+    assert band_mpnn.band_bwd.launches == before + 1
+    _close(got, band_mpnn.band_bwd_plain(g, a["w_sorted"], a["rowptr"]))
+    assert torch.equal(got[n_real:], -g[n_real:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", band_mpnn.ACT_IDS)
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [32, 300, 333])
+def test_band_matmul_act_matches_plain_with_z_on_and_off(cuda, kind, act, H):
+    m, inp, _, wh, a, n_real = _plain_band_operands(kind, H, cuda)
+    args = (m, inp, wh, a["w_sorted"], a["rowptr"], act)
+    before = band_mpnn.launch_counts()
+    out, z = band_mpnn.band_matmul_act_forward(*args, want_z=True)
+    out_only, none = band_mpnn.band_matmul_act_forward(*args, want_z=False)
+    after = band_mpnn.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"band_matmul_act": 2}
+    assert none is None and torch.equal(out, out_only)
+    _close(out, band_mpnn.band_matmul_act_plain(*args))
+    z_plain = band_mpnn.band_agg_plain(m, a["w_sorted"], a["rowptr"])
+    _close(z, z_plain)
+    assert torch.equal(z[n_real:], -m[n_real:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [32, 300, 333])
+def test_band_matmul_matches_plain(cuda, kind, H):
+    m, _, _, wh, a, n_real = _plain_band_operands(kind, H, cuda)
+    args = (m, wh, a["w_sorted"], a["rowptr"])
+    before = band_mpnn.launch_counts()
+    out, z = band_mpnn.band_matmul_forward(*args)
+    after = band_mpnn.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"band_matmul": 1}
+    out_plain, z_plain = band_mpnn.band_matmul_plain(*args)
+    _close(out, out_plain)
+    _close(z, z_plain)
+    assert torch.equal(z[n_real:], -m[n_real:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+def test_padding_rows_of_m_reach_no_real_row(cuda, kind):
+    m, inp, _, wh, a, n_real = _plain_band_operands(kind, 300, cuda)
+    m2 = m.clone()
+    m2[n_real:] = 100.0
+    idx = (a["w_sorted"], a["rowptr"])
+    for fn in (lambda x: band_mpnn.band_agg(x, *idx),
+               lambda x: band_mpnn.band_matmul(x, wh, *idx),
+               lambda x: band_mpnn.band_matmul_act(x, inp, wh, *idx, "tanh")):
+        assert torch.equal(fn(m)[:n_real], fn(m2)[:n_real])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["relu", "tanh", "selu"])
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+def test_plain_band_function_gradients_match_autograd_through_plain(
+        cuda, kind, act):
+    """The three Functions' hand-written backward (kernel 5 and two
+    products) against PyTorch's autograd through the plain versions, on the
+    card. Tolerance as for the kernels, relative to each gradient's largest
+    entry."""
+    H = 300
+    m, inp, g, wh, a, _ = _plain_band_operands(kind, H, cuda)
+    idx = (a["w_sorted"], a["rowptr"])
+    # keep every pre-activation 1e-3 away from 0 (see the rev-fused test)
+    pre = inp + band_mpnn.band_agg_plain(m, *idx) @ wh
+    inp = torch.where(pre.abs() < 1e-3,
+                      inp + torch.where(pre >= 0, 2e-3, -2e-3), inp)
+    cases = [
+        ((m,), lambda x: band_mpnn.band_agg(x, *idx),
+         lambda x: band_mpnn.band_agg_plain(x, *idx),
+         {"band_agg": 1, "band_bwd": 1}),
+        ((m, wh), lambda x, w: band_mpnn.band_matmul(x, w, *idx),
+         lambda x, w: band_mpnn.band_matmul_plain(x, w, *idx)[0],
+         {"band_matmul": 1, "band_bwd": 1}),
+        ((m, wh, inp),
+         lambda x, w, i: band_mpnn.band_matmul_act(x, i, w, *idx, act),
+         lambda x, w, i: band_mpnn.band_matmul_act_plain(x, i, w, *idx, act),
+         {"band_matmul_act": 1, "band_bwd": 1}),
+    ]
+    for operands, fn, plain, launches in cases:
+        def grads(f):
+            leaves = [t.clone().requires_grad_(True) for t in operands]
+            return torch.autograd.grad(f(*leaves), leaves, g)
+
+        before = band_mpnn.launch_counts()
+        got = grads(fn)
+        after = band_mpnn.launch_counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == launches
+        for a_, b_ in zip(got, grads(plain)):
+            _close(a_, b_)
+
+
+@pytest.mark.gpu
+def test_permute_rows_on_the_card(cuda):
+    _, _, g, _, a, _ = _plain_band_operands("polymer", 32, cuda)
+    x = g.clone().requires_grad_(True)
+    out = band_mpnn.permute_rows(x, a["srev"], a["srev"])
+    assert torch.equal(out, g[a["srev"].long()])
+    dx, = torch.autograd.grad(out, x, g)
+    assert torch.equal(dx, g[a["srev"].long()])
+
+
+@pytest.mark.gpu
+def test_smem_arithmetic_equals_the_libraries(cuda):
+    from polymer_chemprop_tpu_torch.kernels.build import load
+    for H in (32, 300, 1495, 1496, 2400):
+        want = band_mpnn.fused_layer_smem_bytes(H)
+        assert load("band_rev_layer").band_rev_layer_smem_bytes(H) == want
+        assert load("band_matmul").band_matmul_smem_bytes(H) == want
+    m, inp, _, _, a, _ = _plain_band_operands("molecules", 1600, cuda)
+    wh = torch.zeros((1600, 1600), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        band_mpnn.band_matmul(m, wh, a["w_sorted"], a["rowptr"])
+    # the widest model that fits launches
+    m, inp, _, _, a, _ = _plain_band_operands("molecules", 1495, cuda)
+    wh = torch.eye(1495, device=cuda)
+    out, z = band_mpnn.band_matmul_forward(m, wh, a["w_sorted"], a["rowptr"])
+    _close(out, z)
+
+
 @pytest.mark.gpu
 def test_wrapper_rejects_bad_inputs(cuda):
     m, inp, wh, a, _ = _batch("molecules", 32, cuda)
@@ -188,3 +346,12 @@ def test_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):
         band_mpnn.band_rev_bwd(m, a["w_sorted"], a["srev"].long(),
                                a["rowptr"])
+    with pytest.raises(TypeError):
+        band_mpnn.band_agg(m, a["w_sorted"], a["rowptr"].long())
+    with pytest.raises(ValueError, match="shape"):
+        band_mpnn.band_bwd(m, a["w_sorted"][:-1], a["rowptr"])
+    with pytest.raises(ValueError, match="contiguous"):
+        band_mpnn.band_matmul(m, wh.t(), a["w_sorted"], a["rowptr"])
+    with pytest.raises(ValueError, match="shape"):
+        band_mpnn.band_matmul_act(m, inp[:-1], wh, a["w_sorted"],
+                                  a["rowptr"], "relu")
