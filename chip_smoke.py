@@ -81,6 +81,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``band_matmul_step_sorted``, forward and backward, on the bench batch
    and held against ``band_message_step_sorted`` followed by a product.
 
+6. Probe path: both kernel probes' entry points
+   (``polymer_chemprop_tpu_torch.probes.band_layer_probe`` and
+   ``fused_matmul_probe``) in-process, on phase 2's featurized batch at
+   hidden 300: the layer against its control (``band_ctrl``, modes
+   ``noq`` and ``pure``) and cuBLAS, the layer's build / epilogue /
+   product split (which must add up to the layer's time), and the
+   split-bf16 tensor-core product (``fused_matmul``) against cuBLAS FP32
+   and TF32 at (B, 300) x (300, 300) and (28,672, 384) x (384, 384). Both
+   kernels must launch in that run. Then ``band_ctrl`` in both modes, at
+   unit and polymer weights, with each block's range its own rows and
+   with 512-row windows, and ``fused_matmul`` at both shapes, are held
+   against their plain versions (1e-5 x max|plain| + 1e-6).
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -98,6 +111,9 @@ import warnings
 import numpy as np
 import torch
 
+from polymer_chemprop_tpu_torch.probes.bench_batch import bench_batch
+from polymer_chemprop_tpu_torch.probes.timing import flush_buffer, timed_ms
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")   # git-ignored
 HIDDEN, DEPTH, SEED = 300, 3, 0
@@ -109,9 +125,12 @@ WIDE_HIDDEN, WIDE_MOLECULES = 1600, 100
 REV_KERNELS = ("band_rev_layer", "band_rev_bwd")
 PLAIN_BAND_KERNELS = ("band_agg", "band_bwd", "band_matmul_act",
                       "band_matmul")
+PROBE_REPS = 10
+JAX_PROBE_SHAPE = (28672, 384)   # scripts/fused_matmul_probe.py's (B, H)
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): FP32 without
-# tensor cores and HBM3 bandwidth
+# tensor cores, bf16 on the tensor cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -153,50 +172,6 @@ def read_smiles(path):
         return [row[0] for row in csv.reader(f)][1:]
 
 
-def bench_batch():
-    """1024 molecules from regression.csv (repeated), dst-sorted."""
-    from polymer_chemprop_tpu_torch.features import mol2graph
-    smiles = read_smiles(os.path.join(ROOT, "tests", "data",
-                                      "regression.csv"))
-    smiles = (smiles * 3)[:1024]
-    t0 = time.perf_counter()
-    gb = mol2graph(smiles)
-    log(f"[host] featurized {len(smiles)} molecules in "
-        f"{time.perf_counter() - t0:.3f} s (pure Python, one thread)")
-    return gb
-
-
-def timed_ms(label: str, fn, flush: torch.Tensor, reps: int = 20,
-             run_ahead: bool = True) -> float:
-    """Median device time of one call, each after an L2 flush; the spread
-    of the launches is logged under ``label``.
-
-    With ``run_ahead`` the flush zeroes the whole 1 GiB buffer (about 0.4 ms
-    of device work), so the host has enqueued ``fn``'s launches before the
-    device reaches them and the two events bracket device time only.
-    Without it the flush zeroes 64 MB: the device is idle again when
-    ``fn``'s first launch arrives, and the time includes the host's way
-    through the wrapper (tens of microseconds: what a kernel shorter than
-    that costs a caller who launches it from an idle stream)."""
-    buf = flush if run_ahead else flush[:64 * 2 ** 20 // 4]
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        buf.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    lo, q1, med, q3, hi = np.percentile(times, [0, 25, 50, 75, 100])
-    log(f"[spread] {label}: min {lo:.4f} q1 {q1:.4f} median {med:.4f} "
-        f"q3 {q3:.4f} max {hi:.4f} ms over {reps} launches")
-    return float(med)
-
-
 def kernel_ms(r: dict, name: str, fn, flush: torch.Tensor,
               key: str = "ms") -> None:
     """Both times of one kernel into ``r``: ``key`` with the host running
@@ -206,9 +181,10 @@ def kernel_ms(r: dict, name: str, fn, flush: torch.Tensor,
                                       fn, flush, run_ahead=False)
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float,
+          peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -225,23 +201,22 @@ def time_against(r, name, kern, plain, lib, nbytes, ops, flush, shape):
         f"({r['bound_by']}: {nbytes} bytes, {ops} operations)")
 
 
-def kernel_phase(dev):
+def kernel_phase(dev, gb):
     from polymer_chemprop_tpu_torch.models.nn import get_activation
     from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
-    from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
+    from polymer_chemprop_tpu_torch.probes.bench_batch import bench_aux
 
-    gb = bench_batch()
     A, B = gb.f_atoms.shape[0], gb.f_bonds.shape[0]
     H = HIDDEN
     rng = np.random.default_rng(SEED)
-    flush = torch.empty(2 ** 30 // 4, device=dev)   # 1 GiB, 20x the L2
+    flush = flush_buffer(dev)   # 1 GiB, 20x the L2
     results = {}
     for weights in ("unit", "polymer"):
         w = gb.w_bonds
         if weights == "polymer":
             w = np.where(w > 0, rng.choice([0.25, 0.5, 0.75], w.shape),
                          0.0).astype(np.float32)
-        aux = build_sorted_aux(gb.b2dst, gb.b2revb, w, num_atoms=A)
+        aux = bench_aux(gb, w)
         n_real = int(aux.rowptr[-1])
         real = np.zeros((B, 1), np.float32)
         real[:n_real] = 1.0
@@ -1101,6 +1076,118 @@ def plain_band_path(card, dev):
     return launches
 
 
+# -- phase 6 ----------------------------------------------------------------
+
+def probe_path(card, dev, gb, results):
+    """Both kernel probes through their entry points on phase 2's batch,
+    then ``band_ctrl`` and ``fused_matmul`` against their plain versions;
+    the probes' numbers go into ``results``. Returns the launches of the
+    probe run."""
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.ops import probe_kernels as pk
+    from polymer_chemprop_tpu_torch.probes import (band_layer_probe,
+                                                   fused_matmul_probe)
+    from polymer_chemprop_tpu_torch.probes.bench_batch import bench_aux
+
+    argv = ["--device", "cuda", "--hidden", str(HIDDEN), "--reps",
+            str(PROBE_REPS)]
+    bm.reset_launch_counts()
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    layer = band_layer_probe.main(argv, batch=gb)
+    fused = fused_matmul_probe.main(argv, batch=gb)
+    torch.cuda.synchronize()
+    launches = {**bm.launch_counts(), **pk.launch_counts()}
+    log(f"[probe] both probes in {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches} on {card}")
+    rows, split = layer["rows"], layer["split"]
+    check(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows.values()),
+          rows)
+    full = rows["full"]["ms"]
+    parts = sum(split.values())
+    log(f"[probe] the layer's split adds up: build + epilogue + product "
+        f"{parts:.4f} ms, full {full:.4f} ms")
+    check(abs(parts - full) <= 1e-9 * full, "the split does not add up")
+    for shape in fused.values():
+        err = shape["errors"]
+        check(all(math.isfinite(v) for v in err.values()), err)
+        # the split drops the lo x lo term: about 1e-5 of the largest entry
+        check(err["kernel_vs_fp64"] <= 1e-4, f"fused_matmul's split: {err}")
+
+    B, H = gb.f_bonds.shape[0], HIDDEN
+    aux = bench_aux(gb)
+    rng = np.random.default_rng(SEED)
+    T = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+    normal = lambda *shape: T(rng.normal(size=shape).astype(np.float32))
+    m, inp = normal(B, H), normal(B, H)
+    wh = T((rng.normal(size=(H, H)) * (2.0 / (2 * H)) ** 0.5)
+           .astype(np.float32))
+
+    def hold(name, what, got, ref):
+        torch.cuda.synchronize()
+        err, tol = (got - ref).abs().max().item(), kernel_tolerance(ref)
+        log(f"[kernel] {what}: max_abs_err {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, f"{what} disagrees with its plain version")
+        note_error(results, name, err)
+
+    # the control's ranges: each block's own rows, and 512-row windows
+    # from 256-row tiles as the TPU control reads them
+    starts = np.minimum(np.arange(0, B, pk.TPU_TILE), B - pk.TPU_WINDOW)
+    ranges = {"own rows": pk.own_row_ranges(B, dev),
+              "512-row windows": pk.window_ranges(starts, B, dev)}
+    for weights in ("unit", "polymer"):
+        w = aux.w_sorted
+        if weights == "polymer":
+            w = np.where(w > 0, rng.choice([0.25, 0.5, 0.75], w.shape),
+                         0.0).astype(np.float32)
+        w = T(w)
+        for label, (lo, hi) in ranges.items():
+            for mode in ("noq", "pure"):
+                hold("band_ctrl", f"band_ctrl {mode} {weights} {label}",
+                     pk.band_ctrl(m, inp, wh, w, lo, hi, mode),
+                     pk.band_ctrl_plain(m, inp, wh, w, lo, hi, mode))
+    for n, k in ((B, H), JAX_PROBE_SHAPE):
+        x = normal(n, k)
+        b_hi, b_lo = pk.split_bf16(normal(k, k) * 0.05)
+        hold("fused_matmul", f"fused_matmul ({n}, {k}) x ({k}, {k})",
+             pk.fused_matmul(x, b_hi, b_lo),
+             pk.fused_matmul_plain(x, b_hi, b_lo))
+
+    # the JSON entries: the probes' own times at the bench shape; bounds
+    # from this batch. band_ctrl (noq, own rows): z @ W_h, the z sums (one
+    # fma per row of each block's range) and the epilogue's add; m, inp
+    # and out once, W_h, w, lo and hi once
+    nblk = -(-B // 32)
+    r = results["band_ctrl"]
+    r.update(ms=rows["noq"]["ms"], ms_pure=rows["pure"]["ms"],
+             plain_ms=rows["noq_plain"]["ms"],
+             library_ms=rows["library_same"]["ms"],
+             ms_layer_full=full, ms_split=split)
+    c_bytes = 4 * (3 * B * H + H * H + B + 2 * nblk)
+    c_ops = 2 * B * H * H + 2 * B * H + B * H
+    r["bound_ms"], r["bound_by"] = bound(c_bytes, c_ops)
+    # fused_matmul: three bf16 passes on the tensor cores; x read and out
+    # written once, b_hi and b_lo once
+    bench, jax_shape = fused["bench"], fused["jax_shape"]
+    r = results["fused_matmul"]
+    r.update(ms=bench["rows"]["fused_matmul"]["ms"],
+             plain_ms=bench["rows"]["plain"]["ms"],
+             library_ms=bench["rows"]["mm_fp32"]["ms"],
+             library_tf32_ms=bench["rows"]["mm_tf32"]["ms"],
+             max_rel_err_fp64=bench["errors"]["kernel_vs_fp64"],
+             ms_jax_shape=jax_shape["rows"]["fused_matmul"]["ms"],
+             library_ms_jax_shape=jax_shape["rows"]["mm_fp32"]["ms"])
+    f_bytes = 4 * B * H + 4 * B * H + 2 * 2 * H * H
+    f_ops = 3 * 2 * B * H * H
+    r["bound_ms"], r["bound_by"] = bound(f_bytes, f_ops, PEAK_BF16_TC_FLOPS)
+    for name in ("band_ctrl", "fused_matmul"):
+        r = results[name]
+        log(f"[time] {name} at B={B} H={H}: kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) on {card}")
+    return launches
+
+
 def main() -> int:
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
@@ -1113,11 +1200,13 @@ def main() -> int:
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
     card = card_and_build()
-    results, B, A = kernel_phase(dev)
+    gb = bench_batch()
+    results, B, A = kernel_phase(dev, gb)
     launches = main_path(card)
-    for counts in (training_path(card), plain_band_path(card, dev)):
+    for counts in (training_path(card), plain_band_path(card, dev),
+                   probe_path(card, dev, gb, results)):
         for name, count in counts.items():
-            launches[name] += count
+            launches[name] = launches.get(name, 0) + count
     check(all(count > 0 for count in launches.values()),
           f"a kernel was never launched by a main path: {launches}")
     sources = {
@@ -1135,6 +1224,10 @@ def main() -> int:
                      "polymer_chemprop_tpu/ops/pallas_mpnn.py:455"),
         "band_matmul": ("polymer_chemprop_tpu_torch/csrc/band_matmul.cu",
                         "polymer_chemprop_tpu/ops/pallas_mpnn.py:395"),
+        "band_ctrl": ("polymer_chemprop_tpu_torch/csrc/band_ctrl.cu",
+                      "scripts/band_mxu_probe.py:45"),
+        "fused_matmul": ("polymer_chemprop_tpu_torch/csrc/fused_matmul.cu",
+                         "scripts/fused_matmul_probe.py:30"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -1146,10 +1239,14 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         # further timings of this run: launched from an idle stream, with z
-        # written, at hidden 1,600, at the training batch's shape
+        # written, at hidden 1,600, at the training batch's shape; the
+        # probes' other rows
         entry.update({k: r[k] for k in (
             "ms_idle_start", "ms_with_z", "ms_h1600", "bound_ms_h1600",
-            "ms_train_batch", "ms_train_batch_idle_start") if k in r})
+            "ms_train_batch", "ms_train_batch_idle_start", "ms_pure",
+            "ms_layer_full", "ms_split", "library_tf32_ms",
+            "max_rel_err_fp64", "ms_jax_shape", "library_ms_jax_shape")
+            if k in r})
         kernels.append(entry)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(kernel shape B={B} A={A} H={HIDDEN})")

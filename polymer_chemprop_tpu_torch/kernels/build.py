@@ -30,7 +30,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
 KERNELS = ("band_rev_layer", "band_rev_bwd", "atom_readout", "band_agg",
-           "band_bwd", "band_matmul")
+           "band_bwd", "band_matmul", "band_ctrl", "fused_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -129,5 +129,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.band_matmul_f32.restype = i
         lib.band_matmul_smem_bytes.argtypes = [i]
         lib.band_matmul_smem_bytes.restype = ctypes.c_size_t
+    elif name == "band_ctrl":
+        lib.band_ctrl_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.band_ctrl_f32.restype = i
+    elif name == "fused_matmul":
+        lib.fused_matmul_f32.argtypes = [p, p, p, p, i, i, i, p]
+        lib.fused_matmul_f32.restype = i
     else:
         raise ValueError(f"unknown kernel library {name!r}")

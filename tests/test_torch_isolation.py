@@ -38,7 +38,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "train.step", "train.scheduler", "train.loss",
                  "data.splits", "chem.scaffold", "models.init", "cli",
                  "kernels.build", "ops.sorted_aux", "models.encoder",
-                 "models.nn"):
+                 "models.nn", "ops.probe_kernels", "probes.timing",
+                 "probes.bench_batch", "probes.band_layer_probe",
+                 "probes.fused_matmul_probe"):
         assert f"polymer_chemprop_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -146,6 +148,15 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     assert band_mpnn.launch_counts() == dict.fromkeys(
         ("band_rev_layer", "band_rev_bwd", "atom_readout", "band_agg",
          "band_bwd", "band_matmul_act", "band_matmul"), 0)
+    # the probes' two wrappers count apart from the encoder's seven
+    from polymer_chemprop_tpu_torch.ops import probe_kernels
+    with pytest.raises(ValueError, match="unsupported device"):
+        probe_kernels.band_ctrl(m, m, wh, w, rowptr[:1], rowptr[:1], "noq")
+    with pytest.raises(ValueError, match="unsupported device"):
+        probe_kernels.fused_matmul(m, wh.to(torch.bfloat16),
+                                   wh.to(torch.bfloat16))
+    assert probe_kernels.launch_counts() == {"band_ctrl": 0,
+                                             "fused_matmul": 0}
 
 
 def test_kernel_modules_import_without_nvcc(monkeypatch):
@@ -156,8 +167,10 @@ def test_kernel_modules_import_without_nvcc(monkeypatch):
     monkeypatch.setenv("PATH", "/nonexistent")
     build = importlib.import_module("polymer_chemprop_tpu_torch.kernels.build")
     importlib.import_module("polymer_chemprop_tpu_torch.ops.band_mpnn")
+    importlib.import_module("polymer_chemprop_tpu_torch.ops.probe_kernels")
     assert build.KERNELS == ("band_rev_layer", "band_rev_bwd", "atom_readout",
-                             "band_agg", "band_bwd", "band_matmul")
+                             "band_agg", "band_bwd", "band_matmul",
+                             "band_ctrl", "fused_matmul")
     for name in build.KERNELS:
         assert (build.CSRC_DIR / f"{name}.cu").exists()
     if not os.path.exists("/usr/local/cuda/bin/nvcc"):

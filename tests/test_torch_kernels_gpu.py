@@ -15,7 +15,7 @@ import torch
 
 from polymer_chemprop_tpu_torch.features import FeaturizationConfig
 from polymer_chemprop_tpu_torch.features import mol2graph
-from polymer_chemprop_tpu_torch.ops import band_mpnn
+from polymer_chemprop_tpu_torch.ops import band_mpnn, probe_kernels
 from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
 
 POLYMERS = ["[*:1]CC[*:2].[*:3]CO[*:4]|0.5|0.5|<1-3:0.5:0.5<2-4:0.5:0.5~20",
@@ -355,3 +355,104 @@ def test_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="shape"):
         band_mpnn.band_matmul_act(m, inp[:-1], wh, a["w_sorted"],
                                   a["rowptr"], "relu")
+
+
+# -- the probes' kernels (band_ctrl, fused_matmul) ---------------------------
+
+@pytest.fixture(scope="module")
+def bench_b():
+    """The bench batch's padded bond count (1,024 molecules: 28,032) and
+    its bond weights, featurized once for the module."""
+    from polymer_chemprop_tpu_torch.probes.bench_batch import (bench_aux,
+                                                               bench_batch)
+    gb = bench_batch(1024)
+    return gb.f_bonds.shape[0], bench_aux(gb).w_sorted
+
+
+def _ctrl_operands(B, H, w_sorted, weights, dev):
+    rng = np.random.default_rng(2)
+    T = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+    w = w_sorted[:B] if w_sorted.shape[0] >= B else np.ones(B, np.float32)
+    if weights == "polymer":
+        w = np.where(w > 0, rng.choice([0.25, 0.5, 0.75], w.shape), 0.0)
+    return (T(rng.normal(size=(B, H)).astype(np.float32)),
+            T(rng.normal(size=(B, H)).astype(np.float32)),
+            T((rng.normal(size=(H, H)) * 0.05).astype(np.float32)),
+            T(w.astype(np.float32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["noq", "pure"])
+@pytest.mark.parametrize("ranges", ["own rows", "512-row windows"])
+@pytest.mark.parametrize("weights", ["unit", "polymer"])
+@pytest.mark.parametrize("shape", ["bench", (1000, 300), (1000, 96)])
+def test_band_ctrl_matches_plain(cuda, bench_b, shape, weights, ranges,
+                                 mode):
+    B, H = (bench_b[0], 300) if shape == "bench" else shape
+    m, inp, wh, w = _ctrl_operands(B, H, bench_b[1], weights, cuda)
+    if ranges == "own rows":
+        lo, hi = probe_kernels.own_row_ranges(B, cuda)
+    else:
+        starts = np.minimum(np.arange(0, B, probe_kernels.TPU_TILE),
+                            B - probe_kernels.TPU_WINDOW)
+        lo, hi = probe_kernels.window_ranges(starts, B, cuda)
+    before = probe_kernels.band_ctrl.launches
+    got = probe_kernels.band_ctrl(m, inp if mode == "noq" else None, wh, w,
+                                  lo, hi, mode)
+    assert probe_kernels.band_ctrl.launches == before + 1
+    _close(got, probe_kernels.band_ctrl_plain(m, inp, wh, w, lo, hi, mode))
+
+
+@pytest.mark.gpu
+def test_band_ctrl_without_weights_is_the_activation_of_inp(cuda):
+    """With zero weights z is exactly 0, so out = act(inp) exactly."""
+    B, H = 1000, 300
+    m, inp, wh, _ = _ctrl_operands(B, H, np.ones(B, np.float32), "unit",
+                                   cuda)
+    lo, hi = probe_kernels.own_row_ranges(B, cuda)
+    w = torch.zeros(B, device=cuda)
+    got = probe_kernels.band_ctrl(m, inp, wh, w, lo, hi, "noq")
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.relu(inp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["bench", (1000, 300), (1000, 96),
+                                   (28672, 384), (77, 33)])
+def test_fused_matmul_matches_plain(cuda, bench_b, shape):
+    N, K = (bench_b[0], 300) if shape == "bench" else shape
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(N, K)).astype(np.float32),
+                        device=cuda)
+    w = torch.as_tensor((rng.normal(size=(K, K)) * 0.05).astype(np.float32),
+                        device=cuda)
+    b_hi, b_lo = probe_kernels.split_bf16(w)
+    before = probe_kernels.fused_matmul.launches
+    got = probe_kernels.fused_matmul(x, b_hi, b_lo)
+    assert probe_kernels.fused_matmul.launches == before + 1
+    _close(got, probe_kernels.fused_matmul_plain(x, b_hi, b_lo))
+    # the split itself: within about 1e-5 of the float32 product
+    exact = x.double() @ w.double()
+    assert ((got.double() - exact).abs().max()
+            <= 1e-4 * exact.abs().max()).item()
+
+
+@pytest.mark.gpu
+def test_probe_wrappers_reject_bad_inputs(cuda):
+    B, H = 64, 32
+    m, inp, wh, w = _ctrl_operands(B, H, np.ones(B, np.float32), "unit",
+                                   cuda)
+    lo, hi = probe_kernels.own_row_ranges(B, cuda)
+    with pytest.raises(TypeError):
+        probe_kernels.band_ctrl(m, inp, wh, w, lo.long(), hi, "noq")
+    with pytest.raises(ValueError, match="shape"):
+        probe_kernels.band_ctrl(m, inp, wh, w, lo[:1], hi[:1], "noq")
+    with pytest.raises(ValueError, match="needs inp"):
+        probe_kernels.band_ctrl(m, None, wh, w, lo, hi, "noq")
+    b_hi, b_lo = probe_kernels.split_bf16(wh)
+    with pytest.raises(TypeError):
+        probe_kernels.fused_matmul(m, b_hi.float(), b_lo)
+    with pytest.raises(ValueError, match="shape"):
+        probe_kernels.fused_matmul(m, b_hi[:-1], b_lo[:-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_kernels.fused_matmul(m.t().contiguous().t(), b_hi, b_lo)
