@@ -27,13 +27,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    zero on padding rows (``z = -m`` and ``dm = -g`` there, bit for bit),
    their three Functions' gradients too, and ``band_agg`` / ``band_bwd``
    once more at hidden 1,600; the Python arithmetic that picks the layer
-   form by shape must equal the libraries' shared-memory answer. Time
-   kernel, plain version and a PyTorch library yardstick with CUDA events,
-   each launch after an L2 flush long enough for the host to run ahead of
-   the device (and each kernel once more from an idle stream, where the
-   time includes the host's way through the wrapper), and compute each
-   kernel's bound from this batch. All seven kernels are timed once more at
-   the training batch's own shape (batch 50).
+   form by shape must equal the libraries' shared-memory answer.
+   ``band_matmul_act`` and ``band_matmul`` also run on their tensor-core
+   stage (``band_precision`` "high" and "default") at hidden 300, 37 and
+   1,495, held against their plain versions at the same precision: the
+   product and relu within the kernel tolerance, tanh and selu within the
+   pre-activation's kernel tolerance times the activation's steepest slope
+   (the tensor cores sum the pre-activation; tanh and selu squeeze it); z
+   bit for bit the FP32 stage's; "high" within 3e-5 of the largest entry
+   against FP64; the Functions' gradients (FP32 backward) against
+   autograd through the plain versions with the split product's value.
+   Time kernel, plain version and a PyTorch library yardstick with CUDA
+   events, each launch after an L2 flush long enough for the host to run
+   ahead of the device (and each kernel once more from an idle stream,
+   where the time includes the host's way through the wrapper), and
+   compute each kernel's bound from this batch; ``band_matmul_act`` and
+   ``band_matmul`` at "high" and "highest" in turn, the yardstick with and
+   without TF32. All seven kernels are timed once more at the training
+   batch's own shape (batch 50).
 3. Serving path: write full-width checkpoints (hidden 300, depth 3, FFN
    2 x 300, seeded random weights) in the JAX package's ``.ckpt`` format,
    one for regression and one for polymer regression, and run the port's
@@ -66,19 +77,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 5. Plain-band path: at the same width, ``cross_validate`` for 3 epochs on
    regression.csv and ``make_predictions`` from the checkpoint it wrote,
    once with ``bias=True`` (layer = ``band_agg`` + W_h in PyTorch) and once
-   with ``undirected=True`` (layer = ``band_matmul_act``), each with exact
+   with ``undirected=True`` (layer = ``band_matmul_act`` at the default
+   ``band_precision`` "high": the tensor-core stage), each with exact
    launch counts (per forward depth - 1 launches of the layer's kernel and
    one readout, per training step depth - 1 of ``band_bwd``, none of the
-   rev-fused kernels), the first step's loss and gradient norm against the
-   CPU (rtol 1e-4), the test score against the CPU (rtol 1e-2) and the
-   predictions against the CPU (rtol 1e-4, atol 1e-5). One prediction run
-   with bfloat16 linear layers (rtol 2e-3, atol 1e-3 against the CPU: both
-   round the same operands to bfloat16 and accumulate in FP32, and differ
-   where another summation order crosses a rounding boundary) and one at
-   hidden 1,600 (too wide for the fused kernels: ``band_agg``; 100
-   molecules; rtol 1e-4, atol 1e-5). ``band_matmul``, which no encoder
-   configuration reaches, is driven through its public op
-   ``band_matmul_step_sorted``, forward and backward, on the bench batch
+   rev-fused kernels; every ``band_matmul_act`` launch on the tensor
+   cores), the first step's loss and gradient norm against the CPU (rtol
+   1e-4), the test score against the CPU (rtol 1e-2) and the predictions
+   against the CPU (rtol 1e-4, atol 1e-5); the CPU runs at "high" too. One
+   prediction run with bfloat16 linear layers (rtol 2e-3, atol 1e-3
+   against the CPU: both round the same operands to bfloat16 and
+   accumulate in FP32, and differ where another summation order crosses a
+   rounding boundary), one at hidden 1,600 (too wide for the fused
+   kernels: ``band_agg``; 100 molecules; rtol 1e-4, atol 1e-5) and one
+   ``undirected`` at ``band_precision="highest"`` (the FP32 stage; rtol
+   1e-4, atol 1e-5). ``band_matmul``, which no encoder configuration
+   reaches, is driven through its public op ``band_matmul_step_sorted``,
+   forward and backward, at "highest" and at "high", on the bench batch
    and held against ``band_message_step_sorted`` followed by a product.
 
 6. Probe path: both kernel probes' entry points
@@ -132,6 +147,11 @@ JAX_PROBE_SHAPE = (28672, 384)   # scripts/fused_matmul_probe.py's (B, H)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+TC_PRECISIONS = ("high", "default")     # band_precision on the tensor cores
+TC_WIDTHS = (37, 1495)                  # beside HIDDEN: ragged, the widest
+# |act(a) - act(b)| <= slope |a - b|; selu's steepest slope is scale x alpha
+ACT_SLOPE = {"relu": 1.0, "tanh": 1.0,
+             "selu": 1.0507009873554805 * 1.6732632423543772}
 
 
 def log(*args):
@@ -145,6 +165,23 @@ def check(ok: bool, what) -> None:
 
 def kernel_tolerance(ref: torch.Tensor) -> float:
     return 1e-5 * ref.abs().max().item() + 1e-6
+
+
+def act_tolerance(pre: torch.Tensor, act: str) -> float:
+    """The kernel tolerance of the pre-activation carried through ``act``:
+    what the tensor cores sum is the pre-activation, and tanh and selu
+    squeeze it to about 1 where it is large, not where it is small."""
+    return ACT_SLOPE[act] * kernel_tolerance(pre)
+
+
+def straight_through(x, wh, precision, bm):
+    """``x @ W_h`` at ``precision`` in value, with the FP32 product's
+    gradient: the reference for the autograd Functions, whose backward is
+    FP32 at every precision (autograd through the split itself would
+    round the gradient to bfloat16)."""
+    fp32 = x @ wh
+    return fp32 + (bm.band_product(x.detach(), wh.detach(), precision)
+                   - fp32.detach())
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -188,13 +225,14 @@ def bound(bytes_moved: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_against(r, name, kern, plain, lib, nbytes, ops, flush, shape):
+def time_against(r, name, kern, plain, lib, nbytes, ops, flush, shape,
+                 peak_flops=PEAK_FP32_FLOPS):
     """Kernel, plain version and library yardstick timed in turn, and the
     kernel's bound from ``nbytes`` and ``ops``, into ``r``."""
     kernel_ms(r, name, kern, flush)
     r["plain_ms"] = timed_ms(f"{name} plain", plain, flush)
     r["library_ms"] = timed_ms(f"{name} library", lib, flush)
-    r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, ops, peak_flops)
     log(f"[time] {name} at {shape}: kernel_ms {r['ms']:.4f} (from an idle "
         f"stream {r['ms_idle_start']:.4f}) plain_ms {r['plain_ms']:.4f} "
         f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
@@ -459,8 +497,11 @@ def plain_band_checks(bm, results, weights, T, rng, aux, A, B, H):
             check(err <= tol, f"{what}: {name} disagrees with autograd "
                               "through the plain version")
 
+    tc_checks(bm, results, weights, T, rng, aux, B, H)
     if weights != "unit":
         return
+    for width in TC_WIDTHS:
+        tc_checks(bm, results, weights, T, rng, aux, B, width)
     # the two unfused kernels once at a width the fused ones cannot take
     wide = 1600
     mw, gw = normal(B, wide), normal(B, wide)
@@ -469,17 +510,148 @@ def plain_band_checks(bm, results, weights, T, rng, aux, A, B, H):
     hold("band_bwd", f"band_bwd H={wide}", bm.band_bwd(gw, ws, rp),
          bm.band_bwd_plain(gw, ws, rp))
     # the layer form is chosen in Python from the shape alone: that
-    # arithmetic must be the libraries'
-    for width in (32, 300, 1495, 1496, wide, 2400):
+    # arithmetic must be the FP32 stage's (band_tile.cuh); the tensor-core
+    # stage (band_tile_sm90.cuh) takes a fixed budget at every width and a
+    # W_h scratch that grows with it
+    lib = load("band_matmul")
+    check(lib.band_matmul_tc_smem_bytes() == bm.TC_SMEM_BYTES
+          <= bm.SMEM_PER_BLOCK,
+          f"tensor-core stage: the library says "
+          f"{lib.band_matmul_tc_smem_bytes()} bytes, Python "
+          f"{bm.TC_SMEM_BYTES}")
+    for width in (32, 37, 300, 1495, 1496, wide, 2400):
         want = bm.fused_layer_smem_bytes(width)
         got = (load("band_rev_layer").band_rev_layer_smem_bytes(width),
-               load("band_matmul").band_matmul_smem_bytes(width))
+               lib.band_matmul_smem_bytes(width))
         check(got == (want, want), f"shared memory at H={width}: the "
               f"libraries say {got}, Python says {want}")
         check(bm.fused_layer_fits(width) == (got[0] <= 227 * 1024),
               f"fused_layer_fits({width})")
+        check(lib.band_matmul_tc_scratch_bytes(width)
+              == bm.tc_scratch_bytes(width), f"W_h scratch at H={width}")
     log(f"[kernel] shared-memory arithmetic agrees with the libraries; the "
-        f"fused kernels fit up to H=1495, H={wide} takes band_agg")
+        f"fused kernels fit up to H=1495, H={wide} takes band_agg; the "
+        f"tensor-core stage takes {bm.TC_SMEM_BYTES} bytes at every width")
+
+
+def tc_checks(bm, results, weights, T, rng, aux, B, H):
+    """``band_matmul_act`` and ``band_matmul`` on the tensor-core stage at
+    "high" and "default" against their plain versions at the same
+    precision: the product (``band_matmul``, ``relu``) within the kernel
+    tolerance, ``tanh`` and ``selu`` within the pre-activation's
+    (:func:`act_tolerance`); z bit for bit the FP32 stage's, ``-m`` on
+    padding rows; "high" against FP64 of the float32 operands within 3e-5
+    of the largest entry; at the bench width the Functions' gradients
+    (FP32 backward) against autograd through the plain versions.
+
+    The plain product is taken on the kernel's own z (the FP32 stage's,
+    bit for bit), and at "high" also on the plain z: "default" rounds z
+    to bfloat16 once, so where the two float32 sums of a z entry differ
+    in the last place across a rounding boundary, z_hi moves by a whole
+    bfloat16 step (2^-8 of it) and with it the product; "high" carries
+    that remainder in z_lo."""
+    n_real = int(aux.rowptr[-1])
+    normal = lambda *shape: T(rng.normal(size=shape).astype(np.float32))
+    m, inp, g = normal(B, H), normal(B, H), normal(B, H)
+    wh = T((rng.normal(size=(H, H)) * (1.0 / H) ** 0.5).astype(np.float32))
+    ws, rp = T(aux.w_sorted), T(aux.rowptr)
+    z_ref = bm.band_agg_plain(m, ws, rp)
+    exact = bm.band_agg_plain(m.double(), ws.double(), rp) @ wh.double()
+
+    def hold(name, what, err, tol):
+        log(f"[kernel] {what} {weights} H={H}: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e})")
+        check(err <= tol, f"{what} disagrees with its plain version")
+        note_error(results, name, err)
+
+    def fp64(name, what, got, want):
+        err = ((got.double() - want).abs().max() / want.abs().max()).item()
+        log(f"[kernel] {what} {weights} H={H} against FP64: max_rel_err "
+            f"{err:.3e} (limit 3e-5)")
+        check(err <= 3e-5, f"{what}: the split is off against FP64")
+        r = results.setdefault(name, {"max_abs_err": 0.0})
+        r["max_rel_err_fp64"] = max(r.get("max_rel_err_fp64", 0.0), err)
+
+    def hold_z(what, z):
+        torch.cuda.synchronize()
+        z_f32 = bm.band_matmul_forward(m, wh, ws, rp)[1]
+        torch.cuda.synchronize()
+        check(torch.equal(z, z_f32), f"{what}: z is not the FP32 stage's")
+        check(torch.equal(z[n_real:], -m[n_real:]),
+              f"{what}: z of padding rows must equal -m")
+
+    from polymer_chemprop_tpu_torch.models.nn import get_activation
+    for precision in TC_PRECISIONS:
+        for act in ("relu", "tanh", "selu"):
+            what = f"band_matmul_act {precision} {act}"
+            out, z = bm.band_matmul_act_forward(m, inp, wh, ws, rp, act,
+                                                True, precision)
+            hold_z(what, z)
+            refs = [("", inp + bm.band_product(z, wh, precision))]
+            if precision == "high":
+                refs.append((" (plain z)",
+                             inp + bm.band_product(z_ref, wh, precision)))
+            for label, pre in refs:
+                want = get_activation(act)(pre)
+                torch.cuda.synchronize()
+                err = (out - want).abs().max().item()
+                hold("band_matmul_act", what + label, err,
+                     kernel_tolerance(want) if act == "relu"
+                     else act_tolerance(pre, act))
+            out_only, none = bm.band_matmul_act_forward(
+                m, inp, wh, ws, rp, act, False, precision)
+            torch.cuda.synchronize()
+            check(none is None and torch.equal(out_only, out),
+                  f"{what} differs with z off")
+            if precision == "high" and act == "relu":
+                fp64("band_matmul_act", what, out,
+                     torch.relu(inp.double() + exact))
+        what = f"band_matmul {precision}"
+        out, z = bm.band_matmul_forward(m, wh, ws, rp, precision)
+        hold_z(what, z)
+        wants = [("", bm.band_product(z, wh, precision))]
+        if precision == "high":
+            wants.append((" (plain z)",
+                          bm.band_matmul_plain(m, wh, ws, rp, precision)[0]))
+        for label, want in wants:
+            torch.cuda.synchronize()
+            hold("band_matmul", what + label, (out - want).abs().max().item(),
+                 kernel_tolerance(want))
+        if precision == "high":
+            fp64("band_matmul", what, out, exact)
+    if H != HIDDEN:
+        return
+
+    # the Functions at "high": tensor-core forward, FP32 backward
+    pre = inp + z_ref @ wh
+    inp_g = torch.where(pre.abs() < 1e-3,
+                        inp + torch.where(pre >= 0, 2e-3, -2e-3), inp)
+    cases = [("band_matmul", (m, wh),
+              lambda x, w: bm.band_matmul(x, w, ws, rp, "high"),
+              lambda x, w: straight_through(bm.band_agg_plain(x, ws, rp), w,
+                                            "high", bm))]
+    for act in ("relu", "tanh"):
+        cases.append((
+            f"band_matmul_act {act}", (m, wh, inp_g),
+            lambda x, w, i, act=act: bm.band_matmul_act(x, i, w, ws, rp, act,
+                                                        "high"),
+            lambda x, w, i, act=act: get_activation(act)(i + straight_through(
+                bm.band_agg_plain(x, ws, rp), w, "high", bm))))
+    for what, operands, fn, plain in cases:
+        def grads(f):
+            leaves = [t.clone().requires_grad_(True) for t in operands]
+            return torch.autograd.grad(f(*leaves), leaves, g)
+
+        before = bm.tc_launch_counts()
+        got_g, want_g = grads(fn), grads(plain)
+        torch.cuda.synchronize()
+        check(bm.tc_launch_counts() != before, f"{what}: no tensor-core launch")
+        for name, a, b in zip(("dm", "dW_h", "dinp"), got_g, want_g):
+            err, tol = (a - b).abs().max().item(), kernel_tolerance(b)
+            log(f"[grad] {what} high {name} {weights}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e})")
+            check(err <= tol, f"{what} high: {name} disagrees with autograd "
+                              "through the plain version")
 
 
 def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
@@ -507,34 +679,67 @@ def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
     agg_ops = 2 * n_real * H + B * H
     bwd_ops = 3 * n_real * H + (B - n_real) * H
     # the fused forms also read inp (band_matmul_act) or write z
-    # (band_matmul) and W_h; the product over all B rows on top
+    # (band_matmul) and W_h; the product over all B rows on top: on the
+    # tensor cores at "high" (three bf16 passes), in FP32 at "highest"
     f_bytes = 4 * (3 * B * H + H * H + B + (A + 1))
     act_ops = 2 * B * H * H + 2 * n_real * H + 2 * B * H
     mm_ops = 2 * B * H * H + 2 * n_real * H + B * H
-    for name, kern, plain, lib, nbytes, ops in (
+    tc_ops = 3 * 2 * B * H * H
+    for name, kern, plain, lib, nbytes, ops, peak in (
             ("band_agg", lambda: bm.band_agg(m, ws, rp),
              lambda: bm.band_agg_plain(m, ws, rp), library_agg, v_bytes,
-             agg_ops),
+             agg_ops, PEAK_FP32_FLOPS),
             ("band_bwd", lambda: bm.band_bwd(g, ws, rp),
              lambda: bm.band_bwd_plain(g, ws, rp), library_bwd, v_bytes,
-             bwd_ops),
+             bwd_ops, PEAK_FP32_FLOPS),
             ("band_matmul_act",
-             lambda: bm.band_matmul_act(m, inp, wh, ws, rp, "relu"),
-             lambda: bm.band_matmul_act_plain(m, inp, wh, ws, rp, "relu"),
+             lambda: bm.band_matmul_act(m, inp, wh, ws, rp, "relu", "high"),
+             lambda: bm.band_matmul_act_plain(m, inp, wh, ws, rp, "relu",
+                                              "high"),
              lambda: torch.relu(torch.addmm(inp, library_agg(), wh)),
-             f_bytes, act_ops),
-            ("band_matmul", lambda: bm.band_matmul_forward(m, wh, ws, rp),
-             lambda: bm.band_matmul_plain(m, wh, ws, rp),
-             lambda: torch.mm(library_agg(), wh), f_bytes, mm_ops)):
+             f_bytes, tc_ops, PEAK_BF16_TC_FLOPS),
+            ("band_matmul",
+             lambda: bm.band_matmul_forward(m, wh, ws, rp, "high"),
+             lambda: bm.band_matmul_plain(m, wh, ws, rp, "high"),
+             lambda: torch.mm(library_agg(), wh), f_bytes, tc_ops,
+             PEAK_BF16_TC_FLOPS)):
         time_against(results[name], name, kern, plain, lib, nbytes, ops,
-                     flush, f"B={B} A={A} H={H}")
-    r = results["band_matmul_act"]
-    r["ms_with_z"] = timed_ms(
-        "band_matmul_act kernel with z",
-        lambda: bm.band_matmul_act_forward(m, inp, wh, ws, rp, "relu",
-                                           want_z=True), flush)
-    log(f"[time] band_matmul_act with z written: kernel_ms "
-        f"{r['ms_with_z']:.4f} (without: {r['ms']:.4f})")
+                     flush, f"B={B} A={A} H={H}", peak)
+    # rows 4 and 7 at "highest" (the FP32 stage) beside "high", with z
+    # written and not, and the yardstick with TF32 on
+    from polymer_chemprop_tpu_torch.ops.band_mpnn import (
+        float32_matmul_precision,
+    )
+    fused = {
+        "band_matmul_act": (
+            lambda p, z: bm.band_matmul_act_forward(m, inp, wh, ws, rp,
+                                                    "relu", z, p),
+            lambda: torch.relu(torch.addmm(inp, library_agg(), wh)),
+            act_ops),
+        "band_matmul": (
+            lambda p, z: bm.band_matmul_forward(m, wh, ws, rp, p),
+            lambda: torch.mm(library_agg(), wh), mm_ops)}
+    for name, (fn, lib, ops) in fused.items():
+        r = results[name]
+        r["ms_highest"] = timed_ms(f"{name} kernel highest",
+                                   lambda: fn("highest", False), flush)
+        if name == "band_matmul_act":
+            for key, p in (("ms_with_z", "high"),
+                           ("ms_with_z_highest", "highest")):
+                r[key] = timed_ms(f"{name} kernel {p} with z",
+                                  lambda p=p: fn(p, True), flush)
+        with float32_matmul_precision("high"):
+            r["library_tf32_ms"] = timed_ms(f"{name} library TF32", lib,
+                                            flush)
+        r["bound_ms_highest"] = bound(f_bytes, ops)[0]
+        log(f"[time] {name} at B={B} H={H}: high {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f}, {r['bound_by']}), highest "
+            f"{r['ms_highest']:.4f} ms (bound {r['bound_ms_highest']:.4f}), "
+            + (f"with z high {r['ms_with_z']:.4f} highest "
+               f"{r['ms_with_z_highest']:.4f}, "
+               if name == "band_matmul_act" else "")
+            + f"library FP32 {r['library_ms']:.4f} TF32 "
+            f"{r['library_tf32_ms']:.4f}")
     wide = 1600
     mw = normal(B, wide)
     for name, fn in (("band_agg", bm.band_agg), ("band_bwd", bm.band_bwd)):
@@ -567,21 +772,28 @@ def train_batch_timings(bm, results, flush, dev):
     wh = torch.randn((H, H), device=dev, generator=gen) * (1.0 / H) ** 0.5
     ws, src, srev, rp = (aux["w_sorted"], aux["src_sorted"], aux["srev"],
                          aux["rowptr"])
-    for name, fn in (
-            ("band_rev_layer",
+    for name, key, fn in (
+            ("band_rev_layer", "ms_train_batch",
              lambda: bm.band_rev_layer(m, inp, wh, ws, src, srev, rp, "relu")),
-            ("band_rev_bwd", lambda: bm.band_rev_bwd(g, ws, srev, rp)),
-            ("atom_readout", lambda: bm.atom_readout(m, ws, rp)),
-            ("band_agg", lambda: bm.band_agg(m, ws, rp)),
-            ("band_bwd", lambda: bm.band_bwd(g, ws, rp)),
-            ("band_matmul_act",
+            ("band_rev_bwd", "ms_train_batch",
+             lambda: bm.band_rev_bwd(g, ws, srev, rp)),
+            ("atom_readout", "ms_train_batch",
+             lambda: bm.atom_readout(m, ws, rp)),
+            ("band_agg", "ms_train_batch", lambda: bm.band_agg(m, ws, rp)),
+            ("band_bwd", "ms_train_batch", lambda: bm.band_bwd(g, ws, rp)),
+            ("band_matmul_act", "ms_train_batch",
+             lambda: bm.band_matmul_act(m, inp, wh, ws, rp, "relu", "high")),
+            ("band_matmul_act", "ms_train_batch_highest",
              lambda: bm.band_matmul_act(m, inp, wh, ws, rp, "relu")),
-            ("band_matmul", lambda: bm.band_matmul_forward(m, wh, ws, rp))):
+            ("band_matmul", "ms_train_batch",
+             lambda: bm.band_matmul_forward(m, wh, ws, rp, "high")),
+            ("band_matmul", "ms_train_batch_highest",
+             lambda: bm.band_matmul_forward(m, wh, ws, rp))):
         r = results[name]
-        kernel_ms(r, f"{name} at B={B}", fn, flush, key="ms_train_batch")
+        kernel_ms(r, f"{name} at B={B}", fn, flush, key=key)
         log(f"[time] {name} at the training batch's shape B={B} A={A} "
-            f"H={H}: kernel_ms {r['ms_train_batch']:.4f} (from an idle "
-            f"stream {r['ms_train_batch_idle_start']:.4f})")
+            f"H={H} ({key}): kernel_ms {r[key]:.4f} (from an idle stream "
+            f"{r[key + '_idle_start']:.4f})")
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -932,14 +1144,21 @@ def plain_band_path(card, dev):
     n = len(smiles)
     batches = lambda k: math.ceil(k / BATCH_SIZE)
     launches = dict.fromkeys(bm.launch_counts(), 0)
+    tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
 
-    def tally(counts, expected):
+    def tally(counts, expected, tc_expected=()):
         """Exact launch counts: ``expected`` for the kernels it names, 0
-        for every other."""
+        for every other; of those, the tensor-core stage's launches are
+        ``expected``'s for the kernels in ``tc_expected``, 0 for others."""
         want = dict(dict.fromkeys(counts, 0), **expected)
         check(counts == want, f"launches {counts}, expected {want}")
+        tc = bm.tc_launch_counts()
+        tc_want = {k: want[k] if k in tc_expected else 0 for k in tc}
+        check(tc == tc_want, f"tensor-core launches {tc}, expected {tc_want}")
         for k in launches:
             launches[k] += counts[k]
+        for k in tc_launches:
+            tc_launches[k] += tc[k]
 
     def predict(ckpt, test_path, tag, device):
         return np.asarray(make_predictions(PredictConfig(
@@ -949,9 +1168,11 @@ def plain_band_path(card, dev):
             dtype=float)
 
     # training and serving with bias (band_agg) and undirected
-    # (band_matmul_act); band_bwd is the VJP of both
+    # (band_matmul_act at the default band_precision "high": the tensor-core
+    # stage); band_bwd is the VJP of both
     for option, layer_kernel in (("bias", "band_agg"),
                                  ("undirected", "band_matmul_act")):
+        tc = (layer_kernel,) if option == "undirected" else ()
         epochs = PLAIN_BAND_EPOCHS
 
         def config(device):
@@ -981,7 +1202,7 @@ def plain_band_path(card, dev):
             f"{score:.6f}, {seconds:.3f} s end to end on {card}")
         tally(counts, {layer_kernel: (DEPTH - 1) * forwards,
                        "band_bwd": (DEPTH - 1) * steps,
-                       "atom_readout": forwards})
+                       "atom_readout": forwards}, tc)
         check(np.isfinite(score), score)
         with open(os.path.join(cfg.save_dir, "verbose.log")) as f:
             rates = [float(x) for x in
@@ -1013,7 +1234,7 @@ def plain_band_path(card, dev):
             f"{counts}, {n / seconds:.1f} molecules/s end to end "
             f"(graphs cached) on {card}")
         tally(counts, {layer_kernel: (DEPTH - 1) * batches(n),
-                       "atom_readout": batches(n)})
+                       "atom_readout": batches(n)}, tc)
         want = predict(ckpt, data_path, f"plain_band_{option}", "cpu")
         check(preds.shape == want.shape == (n, 1), preds.shape)
         check(np.isfinite(preds).all(), "non-finite predictions")
@@ -1022,13 +1243,19 @@ def plain_band_path(card, dev):
         np.testing.assert_allclose(preds, want, rtol=1e-4, atol=1e-5)
 
     # serving with bfloat16 linear layers, and at a hidden size too wide
-    # for the fused kernels: both take band_agg
+    # for the fused kernels: both take band_agg; undirected at
+    # band_precision "highest": band_matmul_act on the FP32 stage
     wide_csv = os.path.join(OUT_DIR, "wide.csv")
     with open(wide_csv, "w") as f:
         f.write("smiles\n" + "\n".join(smiles[:WIDE_MOLECULES]) + "\n")
-    for tag, test_path, kw, rtol, atol in (
-            ("bf16", data_path, dict(param_dtype="bf16"), 2e-3, 1e-3),
-            ("wide", wide_csv, dict(hidden=WIDE_HIDDEN), 1e-4, 1e-5)):
+    for tag, test_path, kw, layer_kernel, rtol, atol in (
+            ("bf16", data_path, dict(param_dtype="bf16"), "band_agg", 2e-3,
+             1e-3),
+            ("wide", wide_csv, dict(hidden=WIDE_HIDDEN), "band_agg", 1e-4,
+             1e-5),
+            ("undirected_highest", data_path,
+             dict(undirected=True, band_precision="highest"),
+             "band_matmul_act", 1e-4, 1e-5)):
         ckpt = os.path.join(OUT_DIR, tag, "model.ckpt")
         write_checkpoint(ckpt, polymer=False, **kw)
         bm.reset_launch_counts()
@@ -1036,7 +1263,7 @@ def plain_band_path(card, dev):
         torch.cuda.synchronize()
         counts = bm.launch_counts()
         k = preds.shape[0]
-        tally(counts, {"band_agg": (DEPTH - 1) * batches(k),
+        tally(counts, {layer_kernel: (DEPTH - 1) * batches(k),
                        "atom_readout": batches(k)})
         want = predict(ckpt, test_path, tag, "cpu")
         check(np.isfinite(preds).all(), "non-finite predictions")
@@ -1062,18 +1289,25 @@ def plain_band_path(card, dev):
         out = op(*leaves)
         return (out, *torch.autograd.grad(out, leaves, g))
 
-    bm.reset_launch_counts()
-    got = run(lambda x, w: bm.band_matmul_step_sorted(x, w, aux))
-    torch.cuda.synchronize()
-    tally(bm.launch_counts(), {"band_matmul": 1, "band_bwd": 1})
-    want = run(lambda x, w: bm.band_message_step_sorted(x, aux) @ w)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("out", "dm", "dW_h"), got, want):
-        err, tol = (a - b).abs().max().item(), kernel_tolerance(b)
-        log(f"[plain-band] band_matmul_step_sorted {name} against band_agg "
-            f"+ product: max_abs_err {err:.3e} (tol {tol:.3e})")
-        check(err <= tol, f"band_matmul_step_sorted {name}")
-    return launches
+    # at the op's default "highest" (the FP32 stage) and at "high" (the
+    # tensor-core stage, against the split product's value with the FP32
+    # product's gradient)
+    for precision, tc in (("highest", ()), ("high", ("band_matmul",))):
+        bm.reset_launch_counts()
+        got = run(lambda x, w: bm.band_matmul_step_sorted(x, w, aux,
+                                                          precision))
+        torch.cuda.synchronize()
+        tally(bm.launch_counts(), {"band_matmul": 1, "band_bwd": 1}, tc)
+        want = run(lambda x, w: straight_through(
+            bm.band_message_step_sorted(x, aux), w, precision, bm))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("out", "dm", "dW_h"), got, want):
+            err, tol = (a - b).abs().max().item(), kernel_tolerance(b)
+            log(f"[plain-band] band_matmul_step_sorted {precision} {name} "
+                f"against band_agg + product: max_abs_err {err:.3e} (tol "
+                f"{tol:.3e})")
+            check(err <= tol, f"band_matmul_step_sorted {precision} {name}")
+    return launches, tc_launches
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -1203,12 +1437,17 @@ def main() -> int:
     gb = bench_batch()
     results, B, A = kernel_phase(dev, gb)
     launches = main_path(card)
-    for counts in (training_path(card), plain_band_path(card, dev),
+    plain_band, tc_launches = plain_band_path(card, dev)
+    for counts in (training_path(card), plain_band,
                    probe_path(card, dev, gb, results)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     check(all(count > 0 for count in launches.values()),
           f"a kernel was never launched by a main path: {launches}")
+    check(all(count > 0 for count in tc_launches.values()),
+          f"the tensor-core stage never ran on a main path: {tc_launches}")
+    for name, count in tc_launches.items():
+        results[name]["tc_launches"] = count
     sources = {
         "band_rev_layer": ("polymer_chemprop_tpu_torch/csrc/band_rev_layer.cu",
                            "polymer_chemprop_tpu/ops/pallas_mpnn.py:1009"),
@@ -1245,7 +1484,9 @@ def main() -> int:
             "ms_idle_start", "ms_with_z", "ms_h1600", "bound_ms_h1600",
             "ms_train_batch", "ms_train_batch_idle_start", "ms_pure",
             "ms_layer_full", "ms_split", "library_tf32_ms",
-            "max_rel_err_fp64", "ms_jax_shape", "library_ms_jax_shape")
+            "max_rel_err_fp64", "ms_jax_shape", "library_ms_jax_shape",
+            "ms_highest", "bound_ms_highest", "ms_with_z_highest",
+            "ms_train_batch_highest", "tc_launches")
             if k in r})
         kernels.append(entry)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "

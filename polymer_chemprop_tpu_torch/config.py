@@ -147,8 +147,10 @@ class TrainConfig:
     # fields the JAX package's trainer adds for its devices, parallelism
     # and kernels: kept so a checkpoint's config reads back whole. The
     # port reads param_dtype ("float32", or "bfloat16" / "bf16" for linear
-    # layers with bfloat16 operands and float32 accumulation) and
-    # reference_init (None or True: replay the reference's torch init stream).
+    # layers with bfloat16 operands and float32 accumulation),
+    # band_precision (the undirected layer's product: "high", "default" or
+    # "highest", models/encoder.py) and reference_init (None or True:
+    # replay the reference's torch init stream).
     num_devices: Optional[int] = None
     param_dtype: str = "float32"
     band_precision: str = "high"

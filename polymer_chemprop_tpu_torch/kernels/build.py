@@ -129,6 +129,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.band_matmul_f32.restype = i
         lib.band_matmul_smem_bytes.argtypes = [i]
         lib.band_matmul_smem_bytes.restype = ctypes.c_size_t
+        lib.band_matmul_act_tc.argtypes = [p, p, p, p, p, p, p, p,
+                                           i, i, i, i, i, p]
+        lib.band_matmul_act_tc.restype = i
+        lib.band_matmul_tc.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.band_matmul_tc.restype = i
+        lib.band_matmul_tc_smem_bytes.argtypes = []
+        lib.band_matmul_tc_smem_bytes.restype = ctypes.c_size_t
+        lib.band_matmul_tc_scratch_bytes.argtypes = [i]
+        lib.band_matmul_tc_scratch_bytes.restype = ctypes.c_size_t
     elif name == "band_ctrl":
         lib.band_ctrl_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         lib.band_ctrl_f32.restype = i

@@ -35,7 +35,11 @@ The layer form of the sorted branch is chosen from the configuration alone
   symmetrized with their reverses before each layer, which needs the
   explicit ``srev`` gather, so the layer is
   :func:`~..ops.band_mpnn.band_matmul_act_step_sorted` on the residual
-  pre-permuted once before the loop.
+  pre-permuted once before the loop. Its product runs at the
+  configuration's ``band_precision``, as the JAX package's band kernels
+  do: ``"high"`` (the default; three bf16 passes on the tensor cores),
+  ``"default"`` (one pass) or ``"highest"`` (FP32). The other forms
+  compute FP32 at every setting.
 * ``"plain"``: ``bias``, bfloat16 compute or a wider hidden size: the W_h
   product is not fused; the layer is
   :func:`~..ops.band_mpnn.band_message_step_sorted` (the plain band
@@ -67,6 +71,7 @@ from ..ops.band_mpnn import (
     band_matmul_act_step_sorted,
     band_message_step_sorted,
     band_rev_layer,
+    check_precision,
     fused_layer_fits,
     permute_rows,
 )
@@ -92,6 +97,10 @@ class EncoderConfig:
     atom_messages: bool = False
     atom_descriptors: Optional[str] = None
     compute_dtype: str = "float32"
+    band_precision: str = "high"
+
+    def __post_init__(self):
+        check_precision(self.band_precision)
 
     def check_supported(self) -> None:
         """Raise for the configurations the JAX package sends to kernels the
@@ -171,7 +180,8 @@ class MPNEncoder(nn.Module):
                         aux["src_sorted"], srev, aux["rowptr"], self.act_name)
                 elif form == "matmul_act":
                     message = band_matmul_act_step_sorted(
-                        message, wh, inputs_srev, aux, self.act_name)
+                        message, wh, inputs_srev, aux, self.act_name,
+                        cfg.band_precision)
                 else:
                     message = band_message_step_sorted(message, aux)
                     message = self.act(inputs + linear(self.W_h, message, bf16))

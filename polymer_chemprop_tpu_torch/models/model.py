@@ -69,6 +69,7 @@ def build_model_config(cfg, num_tasks: int) -> ModelConfig:
         atom_descriptors=cfg.atom_descriptors,
         compute_dtype="bfloat16" if cfg.param_dtype in ("bfloat16", "bf16")
         else "float32",
+        band_precision=cfg.band_precision,
     )
     return ModelConfig(
         encoder=enc,

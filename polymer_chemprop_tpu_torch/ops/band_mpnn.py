@@ -21,9 +21,16 @@
   ``_band_bwd_kernel``).
 * :func:`band_matmul_act`: ``act(inp_srev + z @ W_h)`` with ``z = S m - m``
   (csrc/band_matmul.cu; replaces ``_band_matmul_act_kernel``), and
-  :func:`band_matmul`: ``z @ W_h`` (the same source's second entry point;
+  :func:`band_matmul`: ``z @ W_h`` (the same source's second function;
   replaces ``_band_matmul_kernel``). Differentiable in ``m``, ``W_h`` and
-  ``inp_srev``.
+  ``inp_srev``. Their ``precision`` is the JAX package's
+  ``band_precision``: ``"highest"`` (the default, as the JAX ops') takes
+  the FP32 product (entry points ``*_f32``); ``"high"`` the split-bf16
+  product ``z_hi W_hi + z_hi W_lo + z_lo W_hi`` and ``"default"``
+  ``z_hi W_hi``, both on the tensor cores (``*_tc``,
+  csrc/band_tile_sm90.cuh); :func:`split_matmul` is their plain product.
+  The backward is the same at every precision (FP32), as in the JAX
+  package.
 * :func:`band_message_step_sorted`, :func:`band_matmul_step_sorted` and
   :func:`band_matmul_act_step_sorted`: the JAX package's public ops of the
   same names, each one of the above followed by the ``srev`` row gather
@@ -34,7 +41,9 @@
 them ``z = -m`` and ``dm = -g``. A wrapper given CPU tensors computes the
 plain PyTorch version beside it; given CUDA tensors it launches its kernel
 on the current stream or raises. There is no fallback from one to the
-other. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+other. Each wrapper counts its kernel launches in ``<wrapper>.launches``;
+:func:`band_matmul_act` and :func:`band_matmul` count their tensor-core
+launches once more in ``<wrapper>.tc_launches`` (:func:`tc_launch_counts`).
 
 The gradients are hand-written ``torch.autograd.Function``s that mirror the
 JAX package's ``custom_vjp``s (pallas_mpnn.py:664-676, 806-829, 966-986,
@@ -44,6 +53,7 @@ tensors only the kernels are replaced by their plain versions.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -55,6 +65,10 @@ ACT_IDS = {"relu": 0, "leakyrelu": 1, "prelu": 2, "tanh": 3, "elu": 4,
            "selu": 5}
 _SELU_L = 1.0507009873554805
 _SELU_AL = 1.6732632423543772 * _SELU_L
+# band_precision -> bf16 passes of the tensor-core product; "highest" is
+# the FP32 product
+TC_PASSES = {"high": 3, "default": 1}
+PRECISIONS = ("high", "highest", "default")
 
 
 # tile geometry of csrc/band_tile.cuh (ROWS, KS, NCHUNK) and the shared
@@ -75,6 +89,75 @@ def fused_layer_fits(hidden: int) -> bool:
     from the shape alone, so the CPU takes the same layer form as the
     card."""
     return fused_layer_smem_bytes(hidden) <= SMEM_PER_BLOCK
+
+
+# geometry of csrc/band_tile_sm90.cuh: rows per block, depth per chunk,
+# output columns per pass, and a (pass, chunk) slice of the split W_h
+_TC_ROWS, _TC_KC, _TC_NP = 64, 64, 304
+_TC_SLICE_BYTES = 2 * _TC_NP * 2 * _TC_KC
+# the tensor-core stage's fixed shared memory (band_tile_sm90.cuh
+# SMEM_BYTES): alignment slack, two stages of z and W_h halves, two
+# mbarriers, two ints a row
+TC_SMEM_BYTES = (1024 + 2 * (2 * _TC_ROWS * 2 * _TC_KC + _TC_SLICE_BYTES)
+                 + 8 * 2 + 8 * _TC_ROWS)
+
+
+def tc_scratch_bytes(hidden: int) -> int:
+    """Bytes of the split-W_h scratch the tensor-core entry points take:
+    one slice per (pass, chunk) (band_tile_sm90.cuh ``scratch_bytes``)."""
+    return (-(-hidden // _TC_NP)) * (-(-hidden // _TC_KC)) * _TC_SLICE_BYTES
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"band_precision {precision!r}: expected one of "
+                         f"{PRECISIONS}")
+
+
+def split_bf16(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` bf16 halves of a float32 tensor, each rounded to
+    nearest even: ``hi = bf16(w)``, ``lo = bf16(w - hi)`` (the split of
+    pallas_mpnn.py ``_dot_band`` and fused_matmul_probe.py)."""
+    hi = w.to(torch.bfloat16)
+    return hi, (w - hi.float()).to(torch.bfloat16)
+
+
+@contextlib.contextmanager
+def float32_matmul_precision(level: str):
+    """``torch.set_float32_matmul_precision(level)`` inside the block only:
+    "highest" is full float32, "high" lets cuBLAS use TF32."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(level)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor, passes: int
+                 ) -> torch.Tensor:
+    """``a_hi b_hi + a_hi b_lo + a_lo b_hi`` (``passes=3``) or ``a_hi b_hi``
+    (``passes=1``) for float32 ``a`` and ``b`` split by :func:`split_bf16`:
+    the rounded halves multiplied as float32 with TF32 off, added in
+    pallas_mpnn.py ``_dot_band``'s order."""
+    a_hi, a_lo = (t.float() for t in split_bf16(a))
+    b_hi, b_lo = (t.float() for t in split_bf16(b))
+    with float32_matmul_precision("highest"):
+        out = a_hi @ b_hi
+        if passes == 3:
+            out = out + a_hi @ b_lo
+            out = out + a_lo @ b_hi
+    return out
+
+
+def band_product(z: torch.Tensor, wh: torch.Tensor, precision: str
+                 ) -> torch.Tensor:
+    """``z @ W_h`` at ``band_precision``: FP32 at ``"highest"``, else
+    :func:`split_matmul`."""
+    check_precision(precision)
+    if precision == "highest":
+        return z @ wh
+    return split_matmul(z, wh, TC_PASSES[precision])
 
 
 def act_grad_from_output(act: str, a: torch.Tensor) -> torch.Tensor:
@@ -165,19 +248,22 @@ def band_bwd_plain(g: torch.Tensor, w_sorted: torch.Tensor,
 
 
 def band_matmul_plain(m: torch.Tensor, wh: torch.Tensor,
-                      w_sorted: torch.Tensor, rowptr: torch.Tensor
+                      w_sorted: torch.Tensor, rowptr: torch.Tensor,
+                      precision: str = "highest"
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`band_matmul_forward`: ``(z @ W_h, z)``."""
+    """Plain version of :func:`band_matmul_forward`: ``(z @ W_h, z)``, the
+    product at ``precision`` (:func:`band_product`)."""
     z = band_agg_plain(m, w_sorted, rowptr)
-    return z @ wh, z
+    return band_product(z, wh, precision), z
 
 
 def band_matmul_act_plain(m: torch.Tensor, inp_srev: torch.Tensor,
                           wh: torch.Tensor, w_sorted: torch.Tensor,
-                          rowptr: torch.Tensor, act: str) -> torch.Tensor:
+                          rowptr: torch.Tensor, act: str,
+                          precision: str = "highest") -> torch.Tensor:
     """Plain version of :func:`band_matmul_act`."""
     z = band_agg_plain(m, w_sorted, rowptr)
-    return get_activation(act)(inp_srev + z @ wh)
+    return get_activation(act)(inp_srev + band_product(z, wh, precision))
 
 
 # -- wrappers ----------------------------------------------------------------
@@ -357,10 +443,12 @@ def band_bwd(g: torch.Tensor, w_sorted: torch.Tensor,
 def _band_matmul_launch(kernel: str, m: torch.Tensor,
                         inp_srev: Optional[torch.Tensor], wh: torch.Tensor,
                         w_sorted: torch.Tensor, rowptr: torch.Tensor,
-                        act_id: int, want_z: bool
+                        act_id: int, want_z: bool, precision: str
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Checks, allocation and launch shared by the two entry points of
-    csrc/band_matmul.cu; ``inp_srev`` None selects ``band_matmul_f32``."""
+    """Checks, allocation and launch shared by the entry points of
+    csrc/band_matmul.cu; ``inp_srev`` None selects ``band_matmul_*``,
+    ``precision`` the FP32 (``*_f32``) or the tensor-core (``*_tc``)
+    entry."""
     if m.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {m.device}")
     B, H = m.shape
@@ -380,22 +468,41 @@ def _band_matmul_launch(kernel: str, m: torch.Tensor,
     z_ptr = z.data_ptr() if want_z else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if inp_srev is None:
-            err = lib.band_matmul_f32(
-                m.data_ptr(), wh.data_ptr(), w_sorted.data_ptr(),
-                rowptr.data_ptr(), out.data_ptr(), z_ptr, A, B, H, stream)
+        if precision == "highest":
+            if inp_srev is None:
+                err = lib.band_matmul_f32(
+                    m.data_ptr(), wh.data_ptr(), w_sorted.data_ptr(),
+                    rowptr.data_ptr(), out.data_ptr(), z_ptr, A, B, H,
+                    stream)
+            else:
+                err = lib.band_matmul_act_f32(
+                    m.data_ptr(), inp_srev.data_ptr(), wh.data_ptr(),
+                    w_sorted.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+                    z_ptr, A, B, H, act_id, stream)
         else:
-            err = lib.band_matmul_act_f32(
-                m.data_ptr(), inp_srev.data_ptr(), wh.data_ptr(),
-                w_sorted.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
-                z_ptr, A, B, H, act_id, stream)
+            # W_h split into bf16 halves, padded and swizzled, per call
+            scratch = torch.empty(tc_scratch_bytes(H), dtype=torch.uint8,
+                                  device=dev)
+            passes = TC_PASSES[precision]
+            if inp_srev is None:
+                err = lib.band_matmul_tc(
+                    m.data_ptr(), wh.data_ptr(), scratch.data_ptr(),
+                    w_sorted.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+                    z_ptr, A, B, H, passes, stream)
+            else:
+                err = lib.band_matmul_act_tc(
+                    m.data_ptr(), inp_srev.data_ptr(), wh.data_ptr(),
+                    scratch.data_ptr(), w_sorted.data_ptr(),
+                    rowptr.data_ptr(), out.data_ptr(), z_ptr, A, B, H,
+                    act_id, passes, stream)
     _raise_on(err, kernel)
     return out, z
 
 
 def band_matmul_act_forward(m: torch.Tensor, inp_srev: torch.Tensor,
                             wh: torch.Tensor, w_sorted: torch.Tensor,
-                            rowptr: torch.Tensor, act: str, want_z: bool
+                            rowptr: torch.Tensor, act: str, want_z: bool,
+                            precision: str = "highest"
                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """:func:`band_matmul_act` without autograd: ``(out, z)`` with
     ``z = S m - m`` written only when ``want_z`` (training), else
@@ -403,25 +510,33 @@ def band_matmul_act_forward(m: torch.Tensor, inp_srev: torch.Tensor,
     act = act.lower()
     if act not in ACT_IDS:
         raise ValueError(f'Activation "{act}" not supported.')
+    check_precision(precision)
     if m.device.type == "cpu":
         z = band_agg_plain(m, w_sorted, rowptr)
-        return get_activation(act)(inp_srev + z @ wh), (z if want_z else None)
+        out = get_activation(act)(inp_srev + band_product(z, wh, precision))
+        return out, (z if want_z else None)
     out, z = _band_matmul_launch("band_matmul_act", m, inp_srev, wh, w_sorted,
-                                 rowptr, ACT_IDS[act], want_z)
+                                 rowptr, ACT_IDS[act], want_z, precision)
     band_matmul_act.launches += 1
+    if precision != "highest":
+        band_matmul_act.tc_launches += 1
     return out, z
 
 
 def band_matmul_forward(m: torch.Tensor, wh: torch.Tensor,
-                        w_sorted: torch.Tensor, rowptr: torch.Tensor
+                        w_sorted: torch.Tensor, rowptr: torch.Tensor,
+                        precision: str = "highest"
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`band_matmul` without autograd: ``(z @ W_h, z)`` with
     ``z = S m - m``; both are always written, as by the TPU kernel."""
+    check_precision(precision)
     if m.device.type == "cpu":
-        return band_matmul_plain(m, wh, w_sorted, rowptr)
+        return band_matmul_plain(m, wh, w_sorted, rowptr, precision)
     out, z = _band_matmul_launch("band_matmul", m, None, wh, w_sorted, rowptr,
-                                 0, True)
+                                 0, True, precision)
     band_matmul.launches += 1
+    if precision != "highest":
+        band_matmul.tc_launches += 1
     return out, z
 
 
@@ -503,10 +618,10 @@ class _BandMatmulActFn(torch.autograd.Function):
     wanted, and the activation's derivative is taken from the output."""
 
     @staticmethod
-    def forward(ctx, m, wh, inp_srev, w_sorted, rowptr, act):
+    def forward(ctx, m, wh, inp_srev, w_sorted, rowptr, act, precision):
         want_z = any(ctx.needs_input_grad[:3])
         out, z = band_matmul_act_forward(m, inp_srev, wh, w_sorted, rowptr,
-                                         act, want_z)
+                                         act, want_z, precision)
         if want_z:
             ctx.save_for_backward(z, wh, out, w_sorted, rowptr)
             ctx.act = act.lower()
@@ -519,15 +634,15 @@ class _BandMatmulActFn(torch.autograd.Function):
         g_pre = g * act_grad_from_output(ctx.act, out)
         dm, dwh = _band_matmul_vjp(g_pre, z, wh, w_sorted, rowptr, need_m,
                                    need_wh)
-        return dm, dwh, g_pre if need_inp else None, None, None, None
+        return dm, dwh, g_pre if need_inp else None, None, None, None, None
 
 
 class _BandMatmulFn(torch.autograd.Function):
     """``(S m - m) @ W_h`` with the VJP of band_matmul_step_sorted."""
 
     @staticmethod
-    def forward(ctx, m, wh, w_sorted, rowptr):
-        out, z = band_matmul_forward(m, wh, w_sorted, rowptr)
+    def forward(ctx, m, wh, w_sorted, rowptr, precision):
+        out, z = band_matmul_forward(m, wh, w_sorted, rowptr, precision)
         ctx.save_for_backward(z, wh, w_sorted, rowptr)
         return out
 
@@ -537,7 +652,7 @@ class _BandMatmulFn(torch.autograd.Function):
         need_m, need_wh = ctx.needs_input_grad[:2]
         dm, dwh = _band_matmul_vjp(g, z, wh, w_sorted, rowptr, need_m,
                                    need_wh)
-        return dm, dwh, None, None
+        return dm, dwh, None, None, None
 
 
 class _PermuteRowsFn(torch.autograd.Function):
@@ -604,21 +719,25 @@ def band_agg(m: torch.Tensor, w_sorted: torch.Tensor,
 
 def band_matmul_act(m: torch.Tensor, inp_srev: torch.Tensor,
                     wh: torch.Tensor, w_sorted: torch.Tensor,
-                    rowptr: torch.Tensor, act: str) -> torch.Tensor:
+                    rowptr: torch.Tensor, act: str,
+                    precision: str = "highest") -> torch.Tensor:
     """``act(inp_srev + (S m - m) @ W_h)``: the plain band aggregation with
-    the update product, the residual and the activation in one kernel.
+    the update product, the residual and the activation in one kernel, the
+    product at ``precision`` (module docstring).
 
     m, inp_srev: (B, H) f32; wh: (H, H) f32 in (in, out) layout; w_sorted:
     (B,) f32; rowptr: (A + 1,) int32."""
-    return _BandMatmulActFn.apply(m, wh, inp_srev, w_sorted, rowptr, act)
+    return _BandMatmulActFn.apply(m, wh, inp_srev, w_sorted, rowptr, act,
+                                  precision)
 
 
 def band_matmul(m: torch.Tensor, wh: torch.Tensor, w_sorted: torch.Tensor,
-                rowptr: torch.Tensor) -> torch.Tensor:
+                rowptr: torch.Tensor, precision: str = "highest"
+                ) -> torch.Tensor:
     """``(S m - m) @ W_h``: the plain band aggregation with the update
-    product in one kernel, no residual and no activation. Shapes as for
-    :func:`band_matmul_act`."""
-    return _BandMatmulFn.apply(m, wh, w_sorted, rowptr)
+    product in one kernel, no residual and no activation. Shapes and
+    ``precision`` as for :func:`band_matmul_act`."""
+    return _BandMatmulFn.apply(m, wh, w_sorted, rowptr, precision)
 
 
 def band_message_step_sorted(m: torch.Tensor,
@@ -631,36 +750,48 @@ def band_message_step_sorted(m: torch.Tensor,
 
 
 def band_matmul_step_sorted(m: torch.Tensor, wh: torch.Tensor,
-                            aux: Dict[str, torch.Tensor]) -> torch.Tensor:
+                            aux: Dict[str, torch.Tensor],
+                            precision: str = "highest") -> torch.Tensor:
     """``((S m - m) @ W_h)[srev]``: :func:`band_matmul` then the
     reverse-bond gather."""
-    out = band_matmul(m, wh, aux["w_sorted"], aux["rowptr"])
+    out = band_matmul(m, wh, aux["w_sorted"], aux["rowptr"], precision)
     return permute_rows(out, aux["srev"], aux["srev"])
 
 
 def band_matmul_act_step_sorted(m: torch.Tensor, wh: torch.Tensor,
                                 inp_srev: torch.Tensor,
                                 aux: Dict[str, torch.Tensor],
-                                act: str) -> torch.Tensor:
+                                act: str, precision: str = "highest"
+                                ) -> torch.Tensor:
     """One whole layer, ``act(inputs + ((S m - m) @ W_h)[srev])``, computed
     as ``act(inp_srev + (S m - m) @ W_h)[srev]`` (``srev`` is an
     involution): :func:`band_matmul_act` on the residual pre-permuted by
     ``srev``, then the reverse-bond gather."""
     out = band_matmul_act(m, inp_srev, wh, aux["w_sorted"], aux["rowptr"],
-                          act)
+                          act, precision)
     return permute_rows(out, aux["srev"], aux["srev"])
 
 
 WRAPPERS = (band_rev_layer, band_rev_bwd, atom_readout, band_agg, band_bwd,
             band_matmul_act, band_matmul)
-for _fn in WRAPPERS:
-    _fn.launches = 0
+TC_WRAPPERS = (band_matmul_act, band_matmul)
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in TC_WRAPPERS:
+        fn.tc_launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def tc_launch_counts() -> dict:
+    """Of :func:`launch_counts`, the launches that ran the tensor-core
+    stage (``band_precision`` ``"high"`` or ``"default"``)."""
+    return {fn.__name__: fn.tc_launches for fn in TC_WRAPPERS}

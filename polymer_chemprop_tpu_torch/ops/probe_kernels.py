@@ -14,7 +14,8 @@
 * :func:`fused_matmul`: ``x_hi @ b_hi + x_hi @ b_lo + x_lo @ b_hi`` on the
   tensor cores, x split into bf16 halves as the kernel stages it
   (csrc/fused_matmul.cu; replaces scripts/fused_matmul_probe.py
-  ``_fused_kernel``); :func:`split_bf16` splits the weight once.
+  ``_fused_kernel``); :func:`split_bf16` (from :mod:`.band_mpnn`) splits
+  the weight once.
 
 As in :mod:`.band_mpnn`, a wrapper given CPU tensors computes the plain
 PyTorch version beside it; given CUDA tensors it launches its kernel on the
@@ -24,13 +25,18 @@ current stream or raises. Each wrapper counts its kernel launches in
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .band_mpnn import _check, _check_fits, _raise_on
+from .band_mpnn import (  # noqa: F401 (split_bf16 is part of this API)
+    _check,
+    _check_fits,
+    _raise_on,
+    float32_matmul_precision,
+    split_bf16,
+)
 
 BLOCK_ROWS = 32              # band_tile::ROWS: rows per block of band_ctrl
 MODES = {"noq": 0, "pure": 1}
@@ -60,26 +66,6 @@ def window_ranges(starts: np.ndarray, B: int, device=None
     return (torch.as_tensor(lo.astype(np.int32), device=device),
             torch.as_tensor((lo + TPU_WINDOW).astype(np.int32),
                             device=device))
-
-
-def split_bf16(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(hi, lo)`` bf16 halves of a float32 tensor, each rounded to
-    nearest even: ``hi = bf16(w)``, ``lo = bf16(w - hi)`` (the split of
-    pallas_mpnn.py ``_dot_band`` and fused_matmul_probe.py)."""
-    hi = w.to(torch.bfloat16)
-    return hi, (w - hi.float()).to(torch.bfloat16)
-
-
-@contextlib.contextmanager
-def float32_matmul_precision(level: str):
-    """``torch.set_float32_matmul_precision(level)`` inside the block only:
-    "highest" is full float32, "high" lets cuBLAS use TF32."""
-    before = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision(level)
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(before)
 
 
 # -- plain versions ----------------------------------------------------------

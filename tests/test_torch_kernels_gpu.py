@@ -6,7 +6,10 @@ runs on a GPU machine without it:
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
 
 Tolerance: FP32 with another summation order,
-max|kernel - plain| <= 1e-5 * max|plain| + 1e-6.
+max|kernel - plain| <= 1e-5 * max|plain| + 1e-6; the tensor-core stage
+(``band_precision`` "high" and "default") against the plain version at the
+same precision, the same arithmetic summed in another order, with the same
+tolerance.
 """
 
 import numpy as np
@@ -355,6 +358,192 @@ def test_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="shape"):
         band_mpnn.band_matmul_act(m, inp[:-1], wh, a["w_sorted"],
                                   a["rowptr"], "relu")
+
+
+# -- the tensor-core stage of band_matmul_act / band_matmul -------------------
+
+TC_WIDTHS = [37, 300, 1495]        # ragged in K and N, the default, widest
+# |act(a) - act(b)| <= slope |a - b|: selu's steepest slope is scale x alpha
+ACT_SLOPE = {"relu": 1.0, "tanh": 1.0,
+             "selu": 1.0507009873554805 * 1.6732632423543772}
+
+
+def _tc_product_refs(z, z_plain, wh, precision, inp=None):
+    """``[inp +] z @ W_h`` at ``precision`` in PyTorch on the kernel's z
+    and, at "high", on the plain z. At "default" z is rounded to bfloat16
+    once: where two float32 sums of an entry differ in the last place
+    across a rounding boundary, z_hi moves by a whole bfloat16 step, so
+    only the kernel's own z (the FP32 stage's, bit for bit) is a fair
+    operand; "high" carries that remainder in z_lo."""
+    zs = [z] + ([z_plain] if precision == "high" else [])
+    return [band_mpnn.band_product(x, wh, precision)
+            + (0 if inp is None else inp) for x in zs]
+
+
+def _close_act(got, want, pre, act):
+    """The layer's output against the plain one, with the kernel tolerance
+    of the pre-activation (what the tensor cores sum) carried through the
+    activation: tanh and selu squeeze large pre-activations to about 1,
+    their error where the pre-activation is small is that of the sums."""
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = ACT_SLOPE[act] * (1e-5 * pre.abs().max().item() + 1e-6)
+    assert err <= tol, (err, tol)
+
+
+def _tc_delta(fn, *args):
+    """Launch counts and tensor-core launch counts that ``fn`` adds."""
+    before = band_mpnn.launch_counts(), band_mpnn.tc_launch_counts()
+    out = fn(*args)
+    after = band_mpnn.launch_counts(), band_mpnn.tc_launch_counts()
+    delta = [{k: a[k] - b[k] for k in a if a[k] != b[k]}
+             for a, b in zip(after, before)]
+    return out, delta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("H", TC_WIDTHS)
+def test_tc_stage_is_exact_on_structured_inputs(cuda, H, precision):
+    """Small integers in m, unit weights and a permutation for W_h: every
+    operand and product is exact in bf16, so the kernel must give the
+    plain value bit for bit; a wrong swizzle, descriptor or fragment map
+    moves whole rows or columns."""
+    m, inp, _, _, a, n_real = _plain_band_operands("molecules", H, cuda)
+    B = m.shape[0]
+    t = torch.arange(B, device=cuda)[:, None]
+    k = torch.arange(H, device=cuda)[None, :]
+    m = ((t % 7) + 3 * (k % 5) - 8 + (k // 64) % 3).float()
+    ones = torch.ones_like(a["w_sorted"])
+    perm = torch.randperm(H, generator=torch.Generator().manual_seed(H))
+    wh = torch.eye(H, device=cuda)[perm.to(cuda)]
+    (out, z), launches = _tc_delta(band_mpnn.band_matmul_forward, m, wh, ones,
+                                   a["rowptr"], precision)
+    assert launches == [{"band_matmul": 1}, {"band_matmul": 1}]
+    want_z = band_mpnn.band_agg_plain(m, ones, a["rowptr"])
+    torch.cuda.synchronize()
+    assert torch.equal(z, want_z)
+    assert torch.equal(out, want_z @ wh)
+    out_act, _ = band_mpnn.band_matmul_act_forward(
+        m, inp, wh, ones, a["rowptr"], "relu", False, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(out_act, torch.relu(inp + want_z @ wh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", TC_WIDTHS)
+def test_tc_band_matmul_act_matches_plain(cuda, H, kind, precision):
+    m, inp, _, wh, a, n_real = _plain_band_operands(kind, H, cuda)
+    from polymer_chemprop_tpu_torch.models.nn import get_activation
+    idx = (a["w_sorted"], a["rowptr"])
+    z_plain = band_mpnn.band_agg_plain(m, *idx)
+    for act in ("relu", "tanh", "selu"):
+        args = (m, inp, wh, *idx, act)
+        (out, z), launches = _tc_delta(band_mpnn.band_matmul_act_forward,
+                                       *args, True, precision)
+        assert launches == [{"band_matmul_act": 1}, {"band_matmul_act": 1}]
+        out_only, none = band_mpnn.band_matmul_act_forward(*args, False,
+                                                           precision)
+        assert none is None
+        # the plain product on the kernel's own z and, at "high", on the
+        # plain z (_tc_product_refs)
+        for pre in _tc_product_refs(z, z_plain, wh, precision, inp):
+            want = get_activation(act)(pre)
+            _close_act(out, want, pre, act)
+            if act == "relu":
+                _close(out, want)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out_only)
+        # z is the FP32 stage's z, bit for bit
+        assert torch.equal(z, band_mpnn.band_matmul_act_forward(
+            *args, True, "highest")[1])
+        _close(z, z_plain)
+        assert torch.equal(z[n_real:], -m[n_real:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", TC_WIDTHS)
+def test_tc_band_matmul_matches_plain_and_fp64(cuda, H, kind, precision):
+    m, _, _, wh, a, n_real = _plain_band_operands(kind, H, cuda)
+    idx = (a["w_sorted"], a["rowptr"])
+    (out, z), launches = _tc_delta(band_mpnn.band_matmul_forward, m, wh,
+                                   *idx, precision)
+    assert launches == [{"band_matmul": 1}, {"band_matmul": 1}]
+    z_plain = band_mpnn.band_agg_plain(m, *idx)
+    for want in _tc_product_refs(z, z_plain, wh, precision):
+        _close(out, want)
+    _close(z, z_plain)
+    assert torch.equal(z[n_real:], -m[n_real:])
+    exact = band_mpnn.band_agg_plain(m.double(), idx[0].double(),
+                                     idx[1]) @ wh.double()
+    err = ((out.double() - exact).abs().max() / exact.abs().max()).item()
+    # the split's dropped lo x lo term: about 1e-5 at "high"; one bf16
+    # pass keeps about 3 digits
+    assert err <= (3e-5 if precision == "high" else 1e-2), err
+
+
+def _straight_through(x, wh, precision):
+    """``x @ W_h`` at ``precision`` in value, with the FP32 product's
+    gradient: the reference for the Functions, whose backward is FP32 at
+    every precision."""
+    fp32 = x @ wh
+    return fp32 + (band_mpnn.band_product(x.detach(), wh.detach(), precision)
+                   - fp32.detach())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+def test_tc_function_gradients_match_autograd(cuda, kind, act):
+    """At "high" the forward runs on the tensor cores and the backward is
+    FP32 (band_bwd and two products), against PyTorch's autograd through
+    the plain versions with the split product's value and the FP32
+    product's gradient."""
+    from polymer_chemprop_tpu_torch.models.nn import get_activation
+    H = 300
+    m, inp, g, wh, a, _ = _plain_band_operands(kind, H, cuda)
+    idx = (a["w_sorted"], a["rowptr"])
+    pre = inp + band_mpnn.band_agg_plain(m, *idx) @ wh
+    inp = torch.where(pre.abs() < 1e-3,
+                      inp + torch.where(pre >= 0, 2e-3, -2e-3), inp)
+    cases = [
+        ((m, wh), lambda x, w: band_mpnn.band_matmul(x, w, *idx, "high"),
+         lambda x, w: _straight_through(band_mpnn.band_agg_plain(x, *idx), w,
+                                        "high"),
+         {"band_matmul": 1, "band_bwd": 1}),
+        ((m, wh, inp),
+         lambda x, w, i: band_mpnn.band_matmul_act(x, i, w, *idx, act, "high"),
+         lambda x, w, i: get_activation(act)(i + _straight_through(
+             band_mpnn.band_agg_plain(x, *idx), w, "high")),
+         {"band_matmul_act": 1, "band_bwd": 1}),
+    ]
+    for operands, fn, plain, launches in cases:
+        def grads(f):
+            leaves = [t.clone().requires_grad_(True) for t in operands]
+            return torch.autograd.grad(f(*leaves), leaves, g)
+
+        got, delta = _tc_delta(grads, fn)
+        assert delta[0] == launches
+        for a_, b_ in zip(got, grads(plain)):
+            _close(a_, b_)
+
+
+@pytest.mark.gpu
+def test_tc_shared_memory_is_fixed_and_scratch_matches(cuda):
+    from polymer_chemprop_tpu_torch.kernels.build import load
+    lib = load("band_matmul")
+    assert lib.band_matmul_tc_smem_bytes() == band_mpnn.TC_SMEM_BYTES
+    assert band_mpnn.TC_SMEM_BYTES <= band_mpnn.SMEM_PER_BLOCK
+    for H in (1, 37, 64, 65, 300, 304, 305, 1495, 1600):
+        assert lib.band_matmul_tc_scratch_bytes(H) \
+            == band_mpnn.tc_scratch_bytes(H)
+    with pytest.raises(ValueError, match="band_precision"):
+        m, _, _, wh, a, _ = _plain_band_operands("molecules", 32, cuda)
+        band_mpnn.band_matmul(m, wh, a["w_sorted"], a["rowptr"], "fp16")
 
 
 # -- the probes' kernels (band_ctrl, fused_matmul) ---------------------------

@@ -99,11 +99,10 @@ def interpret_mode():
 
 def _configs(name, num_tasks=2):
     enc_kw, form, data = CONFIGS[name]
-    enc = dict(dict(atom_fdim=133, bond_fdim=147, hidden_size=32, depth=3),
-               **enc_kw)
+    enc = dict(dict(atom_fdim=133, bond_fdim=147, hidden_size=32, depth=3,
+                    band_precision="highest"), **enc_kw)
     model_kw = dict(ffn_num_layers=2, ffn_hidden_size=32, num_tasks=num_tasks)
-    jcfg = JaxModelConfig(encoder=JaxEncoderConfig(band_precision="highest",
-                                                   **enc), **model_kw)
+    jcfg = JaxModelConfig(encoder=JaxEncoderConfig(**enc), **model_kw)
     cfg = ModelConfig(encoder=EncoderConfig(**enc), **model_kw)
     assert cfg.encoder.layer_form() == form
     return jcfg, cfg, data

@@ -127,10 +127,10 @@ def _assert_logs_close(got, want, rtol=RTOL):
                                        err_msg=k)
 
 
-def _run_both(root, option):
+def _run_both(root, option, **extra):
     port_dir, jax_dir = str(root / "port"), str(root / "jax")
     kw = dict(data_path=REGRESSION, dataset_type="regression",
-              grad_clip=2.0, **SMALL, **{option: True})
+              grad_clip=2.0, **SMALL, **{option: True}, **extra)
     port = cross_validate(TrainConfig(save_dir=port_dir, device="cpu", **kw))
     jax_ = jax_cross_validate(JaxTrainConfig(save_dir=jax_dir, **kw))
     return port_dir, jax_dir, port, jax_, kw
@@ -158,7 +158,10 @@ def test_cross_validate_with_bias_matches_jax_package(bias_runs):
 
 
 def test_cross_validate_undirected_matches_jax_package(tmp_path):
-    port_dir, jax_dir, port, jax_, _ = _run_both(tmp_path, "undirected")
+    # on the CPU the JAX package trains through XLA in FP32, whatever its
+    # band_precision: the port's layer says "highest" to compute the same
+    port_dir, jax_dir, port, jax_, _ = _run_both(
+        tmp_path, "undirected", band_precision="highest")
     np.testing.assert_allclose(port, jax_, rtol=RTOL)
     _assert_logs_close(_log(port_dir), _log(jax_dir))
 

@@ -86,10 +86,10 @@ def _configs(case):
     kw = dict(CASES[case])
     polymer = kw.pop("polymer", False)
     enc_kw = {k: kw.pop(k) for k in ("activation", "aggregation") if k in kw}
-    enc = dict(atom_fdim=133, bond_fdim=147, hidden_size=32, depth=3, **enc_kw)
+    enc = dict(atom_fdim=133, bond_fdim=147, hidden_size=32, depth=3,
+               band_precision="highest", **enc_kw)
     model_kw = dict(ffn_num_layers=2, ffn_hidden_size=32, **kw)
-    jcfg = JaxModelConfig(encoder=JaxEncoderConfig(band_precision="highest",
-                                                   **enc), **model_kw)
+    jcfg = JaxModelConfig(encoder=JaxEncoderConfig(**enc), **model_kw)
     return jcfg, ModelConfig(encoder=EncoderConfig(**enc), **model_kw), polymer
 
 
