@@ -21,7 +21,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``torch.autograd.Function``s are held against PyTorch's autograd
    through the plain versions, with the same tolerance relative to each
    gradient's largest entry; padding rows must give dm = -g exactly and
-   add exactly nothing to dW_h. The four plain-band kernels (``band_agg``,
+   add exactly nothing to dW_h. These hold the layer's FP32 entry
+   (``band_precision`` "highest"); its tensor-core entry ("high" and
+   "default") goes through the checks of ``band_matmul_act``'s below, at
+   hidden 300, 37 and 1,495 (padding rows exactly 0, z bit for bit the
+   FP32 entry's). The four plain-band kernels (``band_agg``,
    ``band_bwd``, ``band_matmul_act`` with ``z`` on and off,
    ``band_matmul``) go through the same checks on operands that are not
    zero on padding rows (``z = -m`` and ``dm = -g`` there, bit for bit),
@@ -43,26 +47,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    where the time includes the host's way through the wrapper), and
    compute each kernel's bound from this batch; ``band_matmul_act`` and
    ``band_matmul`` at "high" and "highest" in turn, the yardstick with and
-   without TF32. All seven kernels are timed once more at the training
-   batch's own shape (batch 50).
+   without TF32; ``band_rev_layer`` likewise (its ``ms`` at "high"); the
+   three once more at "default". All
+   seven kernels are timed once more at the training batch's own shape
+   (batch 50).
 3. Serving path: write full-width checkpoints (hidden 300, depth 3, FFN
    2 x 300, seeded random weights) in the JAX package's ``.ckpt`` format,
    one for regression and one for polymer regression, and run the port's
    ``make_predictions`` on the card on tests/data/regression.csv (500
    molecules) and on 200 synthetic copolymer strings, timing each run end
-   to end (host featurization included). The kernels' launch
-   counts must equal (depth - 1) x batches and batches; the predictions
-   must be finite and match the same run on the CPU (plain versions)
-   within rtol 1e-4, atol 1e-5 (FP32 through five layers, sums in another
-   order on each side).
+   to end (host featurization included), at the default
+   ``band_precision`` "high"; then 100 molecules from the regression
+   checkpoint written at "highest". The kernels' launch counts must equal
+   (depth - 1) x batches and batches, every layer launch on the tensor
+   cores at "high" and none at "highest"; the predictions must be finite
+   and match the same run on the CPU (plain versions, at the same
+   precision) within rtol 1e-4, atol 1e-5 (sums in another order on each
+   side through five layers).
 
 4. Training path: ``cross_validate`` on the card at full width (hidden
    300, depth 3, FFN 2 x 300, relu, mean, f32, dropout 0, Noam, Adam,
    batch 50): 3 epochs on tests/data/regression.csv (500 molecules,
    400/50/50 split) and 2 epochs on 200 synthetic copolymers. The launch
    counts of all three kernels must equal what the code implies (forward
-   layer = (depth - 1) x (train steps + evaluation batches), backward =
-   (depth - 1) x train steps, readout = one per forward); every logged
+   layer = (depth - 1) x (train steps + evaluation batches), all on the
+   tensor cores at the default "high", backward = (depth - 1) x train
+   steps, readout = one per forward); every logged
    loss is finite and the training loss falls. One optimizer step from the
    same initial weights on the same batch gives the same loss and gradient
    norm on the card as on the CPU (rtol 1e-4: FP32, other summation
@@ -137,6 +147,7 @@ N_POLYMERS = 200
 TRAIN_EPOCHS = {"regression": 3, "polymer": 2}
 PLAIN_BAND_EPOCHS = 3
 WIDE_HIDDEN, WIDE_MOLECULES = 1600, 100
+HIGHEST_MOLECULES = 100   # serving at band_precision "highest"
 REV_KERNELS = ("band_rev_layer", "band_rev_bwd")
 PLAIN_BAND_KERNELS = ("band_agg", "band_bwd", "band_matmul_act",
                       "band_matmul")
@@ -357,6 +368,10 @@ def kernel_phase(dev, gb):
                 f"max_abs_err {err:.3e} (tol {tol:.3e})")
             check(err <= tol, "padding rows moved dW_h")
 
+        rev_tc_checks(bm, results, weights, T, rng, aux, B, H)
+        if weights == "unit":
+            for width in TC_WIDTHS:
+                rev_tc_checks(bm, results, weights, T, rng, aux, B, width)
         plain_band_checks(bm, results, weights, T, rng, aux, A, B, H)
 
         if weights != "unit":
@@ -379,8 +394,12 @@ def kernel_phase(dev, gb):
 
         run_len = (aux.rowptr[aux.src_sorted + 1]
                    - aux.rowptr[aux.src_sorted]).astype(np.int64).sum()
+        # m, inp and out once, W_h, w, src, srev and rowptr once; at
+        # "highest" the FP32 product, one fma per run element and the
+        # subtraction, at "high" three bf16 passes on the tensor cores
         b_bytes = 4 * (3 * B * H + H * H + 3 * B + (A + 1))
         b_ops = 2 * B * H * H + 2 * int(run_len) * H + B * H
+        b_tc_ops = 3 * 2 * B * H * H
         r_bytes = 4 * (n_real * H + n_real + A * H + (A + 1))
         r_ops = 2 * n_real * H
         # g read once, dm written once, w, srev and rowptr read once; one
@@ -388,30 +407,152 @@ def kernel_phase(dev, gb):
         # padding element for dm
         v_bytes = 4 * (2 * B * H + 2 * B + (A + 1))
         v_ops = 3 * n_real * H + (B - n_real) * H
-        for name, kern, plain, lib, nbytes, ops in (
+        for name, kern, plain, lib, nbytes, ops, peak in (
                 ("band_rev_layer",
                  lambda: bm.band_rev_layer(m, inp, wh, ws, src, srev, rp,
-                                           "relu"),
+                                           "relu", "high"),
                  lambda: bm.band_rev_layer_plain(m, inp, wh, ws, src, srev,
-                                                 rp, "relu"),
-                 library_layer, b_bytes, b_ops),
+                                                 rp, "relu", "high"),
+                 library_layer, b_bytes, b_tc_ops, PEAK_BF16_TC_FLOPS),
                 ("band_rev_bwd", lambda: bm.band_rev_bwd(g, ws, srev, rp),
                  lambda: bm.band_rev_bwd_plain(g, ws, srev, rp),
-                 library_bwd, v_bytes, v_ops),
+                 library_bwd, v_bytes, v_ops, PEAK_FP32_FLOPS),
                 ("atom_readout", lambda: bm.atom_readout(m, ws, rp),
                  lambda: bm.atom_readout_plain(m, ws, rp),
-                 library_readout, r_bytes, r_ops)):
+                 library_readout, r_bytes, r_ops, PEAK_FP32_FLOPS)):
             time_against(results[name], name, kern, plain, lib, nbytes, ops,
-                         flush, f"B={B} A={A} H={H}")
+                         flush, f"B={B} A={A} H={H}", peak)
+        # row 1 at "highest" (the FP32 entry) beside "high", with z written
+        # and not, and the yardstick with TF32 on
+        from polymer_chemprop_tpu_torch.ops.band_mpnn import (
+            float32_matmul_precision,
+        )
         r = results["band_rev_layer"]
-        r["ms_with_z"] = timed_ms(
-            "band_rev_layer kernel with z", lambda: bm.band_rev_layer_forward(m, inp, wh, ws, src, srev, rp,
-                                              "relu", want_z=True), flush)
-        log(f"[time] band_rev_layer with z written: kernel_ms "
-            f"{r['ms_with_z']:.4f} (without: {r['ms']:.4f})")
+        layer = lambda p, z: bm.band_rev_layer_forward(
+            m, inp, wh, ws, src, srev, rp, "relu", z, p)
+        for key, p in (("ms_highest", "highest"), ("ms_default", "default")):
+            r[key] = timed_ms(f"band_rev_layer kernel {p}",
+                              lambda p=p: layer(p, False), flush)
+        for key, p in (("ms_with_z", "high"), ("ms_with_z_highest",
+                                               "highest")):
+            r[key] = timed_ms(f"band_rev_layer kernel {p} with z",
+                              lambda p=p: layer(p, True), flush)
+        with float32_matmul_precision("high"):
+            r["library_tf32_ms"] = timed_ms("band_rev_layer library TF32",
+                                            library_layer, flush)
+        r["bound_ms_highest"] = bound(b_bytes, b_ops)[0]
+        log(f"[time] band_rev_layer at B={B} H={H}: high {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f}, {r['bound_by']}), default "
+            f"{r['ms_default']:.4f} ms, highest "
+            f"{r['ms_highest']:.4f} ms (bound {r['bound_ms_highest']:.4f}), "
+            f"with z high {r['ms_with_z']:.4f} highest "
+            f"{r['ms_with_z_highest']:.4f}, library FP32 "
+            f"{r['library_ms']:.4f} TF32 {r['library_tf32_ms']:.4f}")
         plain_band_timings(bm, results, flush, T, rng, aux, A, B, H)
     train_batch_timings(bm, results, flush, dev)
     return results, B, A
+
+
+def rev_tc_checks(bm, results, weights, T, rng, aux, B, H):
+    """``band_rev_layer`` on the tensor-core stage at "high" and "default"
+    against its plain version at the same precision: relu within the
+    kernel tolerance, tanh and selu within the pre-activation's
+    (:func:`act_tolerance`); z bit for bit the FP32 entry's; padding rows
+    (zero m and inp, as the encoder keeps them) exactly 0; "high" against
+    FP64 of the float32 operands within 3e-5 of the largest entry; the
+    plain product on the kernel's own z and, at "high", on the plain z
+    (see :func:`tc_checks`); at the bench width the Function's gradients
+    (FP32 backward) against autograd through the plain version."""
+    from polymer_chemprop_tpu_torch.models.nn import get_activation
+    n_real = int(aux.rowptr[-1])
+    real = np.zeros((B, 1), np.float32)
+    real[:n_real] = 1.0
+    normal = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    m, inp, g = T(normal(B, H) * real), T(normal(B, H) * real), \
+        T(normal(B, H))
+    wh = T((rng.normal(size=(H, H)) * (1.0 / H) ** 0.5).astype(np.float32))
+    idx = (T(aux.w_sorted), T(aux.src_sorted), T(aux.srev), T(aux.rowptr))
+    z_ref = bm.band_rev_z_plain(m, *idx)
+    exact = bm.band_rev_z_plain(m.double(), idx[0].double(), *idx[1:]) \
+        @ wh.double()
+    z_f32 = bm.band_rev_layer_forward(m, inp, wh, *idx, "relu", True)[1]
+
+    def hold(what, err, tol):
+        log(f"[kernel] {what} {weights} H={H}: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e})")
+        check(err <= tol, f"{what} disagrees with its plain version")
+        note_error(results, "band_rev_layer", err)
+
+    for precision in TC_PRECISIONS:
+        for act in ("relu", "tanh", "selu"):
+            what = f"band_rev_layer {precision} {act}"
+            before = bm.tc_launch_counts()["band_rev_layer"]
+            out, z = bm.band_rev_layer_forward(m, inp, wh, *idx, act, True,
+                                               precision)
+            torch.cuda.synchronize()
+            check(bm.tc_launch_counts()["band_rev_layer"] == before + 1,
+                  f"{what}: not on the tensor cores")
+            check(torch.equal(z, z_f32), f"{what}: z is not the FP32 entry's")
+            check(n_real == B or (out[n_real:].abs().max().item() == 0.0
+                                  and z[n_real:].abs().max().item() == 0.0),
+                  f"{what}: padding rows must stay exactly zero")
+            refs = [("", inp + bm.band_product(z, wh, precision))]
+            if precision == "high":
+                refs.append((" (plain z)",
+                             inp + bm.band_product(z_ref, wh, precision)))
+            for label, pre in refs:
+                want = get_activation(act)(pre)
+                torch.cuda.synchronize()
+                hold(what + label, (out - want).abs().max().item(),
+                     kernel_tolerance(want) if act == "relu"
+                     else act_tolerance(pre, act))
+            out_only, none = bm.band_rev_layer_forward(
+                m, inp, wh, *idx, act, False, precision)
+            torch.cuda.synchronize()
+            check(none is None and torch.equal(out_only, out),
+                  f"{what} differs with z off")
+            if precision == "high" and act == "relu":
+                hold_fp64(results, "band_rev_layer", f"{what} {weights} H={H}",
+                          out, torch.relu(inp.double() + exact))
+    if H != HIDDEN:
+        return
+
+    # the Function at "high": tensor-core forward, FP32 backward;
+    # pre-activations kept 1e-3 away from 0 (see kernel_phase)
+    pre = inp + z_ref @ wh
+    inp_g = torch.where(pre.abs() < 1e-3,
+                        inp + torch.where(pre >= 0, 2e-3, -2e-3), inp)
+    for act in ("relu", "tanh"):
+        def grads(f):
+            leaves = [t.clone().requires_grad_(True) for t in (m, wh, inp_g)]
+            return torch.autograd.grad(f(*leaves), leaves, g)
+
+        before = bm.tc_launch_counts()
+        got_g = grads(lambda x, w, i: bm.band_rev_layer(x, i, w, *idx, act,
+                                                        "high"))
+        want_g = grads(lambda x, w, i: get_activation(act)(
+            i + straight_through(bm.band_rev_z_plain(x, *idx), w, "high",
+                                 bm)))
+        torch.cuda.synchronize()
+        check(bm.tc_launch_counts() != before,
+              f"band_rev_layer {act}: no tensor-core launch")
+        for name, a, b in zip(("dm", "dW_h", "dinp"), got_g, want_g):
+            err, tol = (a - b).abs().max().item(), kernel_tolerance(b)
+            log(f"[grad] band_rev_layer {act} high {name} {weights}: "
+                f"max_abs_err {err:.3e} (tol {tol:.3e})")
+            check(err <= tol, f"band_rev_layer {act} high: {name} disagrees "
+                              "with autograd through the plain version")
+
+
+def hold_fp64(results, name, what, got, want):
+    """The split product at "high" against FP64 of the float32 operands:
+    within 3e-5 of the largest entry (the dropped lo x lo term is about
+    1e-5)."""
+    err = ((got.double() - want).abs().max() / want.abs().max()).item()
+    log(f"[kernel] {what} against FP64: max_rel_err {err:.3e} (limit 3e-5)")
+    check(err <= 3e-5, f"{what}: the split is off against FP64")
+    r = results.setdefault(name, {"max_abs_err": 0.0})
+    r["max_rel_err_fp64"] = max(r.get("max_rel_err_fp64", 0.0), err)
 
 
 def note_error(results, name, err):
@@ -565,12 +706,7 @@ def tc_checks(bm, results, weights, T, rng, aux, B, H):
         note_error(results, name, err)
 
     def fp64(name, what, got, want):
-        err = ((got.double() - want).abs().max() / want.abs().max()).item()
-        log(f"[kernel] {what} {weights} H={H} against FP64: max_rel_err "
-            f"{err:.3e} (limit 3e-5)")
-        check(err <= 3e-5, f"{what}: the split is off against FP64")
-        r = results.setdefault(name, {"max_abs_err": 0.0})
-        r["max_rel_err_fp64"] = max(r.get("max_rel_err_fp64", 0.0), err)
+        hold_fp64(results, name, f"{what} {weights} H={H}", got, want)
 
     def hold_z(what, z):
         torch.cuda.synchronize()
@@ -721,8 +857,9 @@ def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
             lambda: torch.mm(library_agg(), wh), mm_ops)}
     for name, (fn, lib, ops) in fused.items():
         r = results[name]
-        r["ms_highest"] = timed_ms(f"{name} kernel highest",
-                                   lambda: fn("highest", False), flush)
+        for key, p in (("ms_highest", "highest"), ("ms_default", "default")):
+            r[key] = timed_ms(f"{name} kernel {p}",
+                              lambda p=p: fn(p, False), flush)
         if name == "band_matmul_act":
             for key, p in (("ms_with_z", "high"),
                            ("ms_with_z_highest", "highest")):
@@ -733,7 +870,8 @@ def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
                                             flush)
         r["bound_ms_highest"] = bound(f_bytes, ops)[0]
         log(f"[time] {name} at B={B} H={H}: high {r['ms']:.4f} ms (bound "
-            f"{r['bound_ms']:.4f}, {r['bound_by']}), highest "
+            f"{r['bound_ms']:.4f}, {r['bound_by']}), default "
+            f"{r['ms_default']:.4f} ms, highest "
             f"{r['ms_highest']:.4f} ms (bound {r['bound_ms_highest']:.4f}), "
             + (f"with z high {r['ms_with_z']:.4f} highest "
                f"{r['ms_with_z_highest']:.4f}, "
@@ -752,9 +890,9 @@ def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
 
 
 def train_batch_timings(bm, results, flush, dev):
-    """All seven kernels once more at the shape a training step gives them:
-    the first batch of 50 molecules of regression.csv as the trainer's
-    loader pads it."""
+    """All seven kernels once more at the shape a training step gives them
+    (the three W_h-fused ones at "high" and "highest"): the first batch of
+    50 molecules of regression.csv as the trainer's loader pads it."""
     from polymer_chemprop_tpu_torch.data import MoleculeDataLoader, get_data
     from polymer_chemprop_tpu_torch.features import FeaturizationConfig
     from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
@@ -774,6 +912,9 @@ def train_batch_timings(bm, results, flush, dev):
                          aux["rowptr"])
     for name, key, fn in (
             ("band_rev_layer", "ms_train_batch",
+             lambda: bm.band_rev_layer(m, inp, wh, ws, src, srev, rp, "relu",
+                                       "high")),
+            ("band_rev_layer", "ms_train_batch_highest",
              lambda: bm.band_rev_layer(m, inp, wh, ws, src, srev, rp, "relu")),
             ("band_rev_bwd", "ms_train_batch",
              lambda: bm.band_rev_bwd(g, ws, srev, rp)),
@@ -872,7 +1013,18 @@ def main_path(card):
     polymer_csv(poly_csv)
     jobs.append(("polymer", poly_csv, poly_ckpt))
 
+    # the regression checkpoint once more at band_precision "highest" (the
+    # rev layer's FP32 entry), on its first molecules
+    hi_ckpt = os.path.join(OUT_DIR, "regression_highest", "model.ckpt")
+    write_checkpoint(hi_ckpt, polymer=False, band_precision="highest")
+    hi_csv = os.path.join(OUT_DIR, "regression_highest.csv")
+    smiles = read_smiles(jobs[0][1])[:HIGHEST_MOLECULES]
+    with open(hi_csv, "w") as f:
+        f.write("smiles\n" + "\n".join(smiles) + "\n")
+    jobs.append(("regression_highest", hi_csv, hi_ckpt))
+
     launches = dict.fromkeys(bm.launch_counts(), 0)
+    tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
     for name, test_path, ckpt in jobs:
         def run(device, tag):
             return np.asarray(make_predictions(PredictConfig(
@@ -886,25 +1038,33 @@ def main_path(card):
         got = run("cuda", "gpu")          # cold: featurization included
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = bm.launch_counts()
+        counts, tc = bm.launch_counts(), bm.tc_launch_counts()
         n = got.shape[0]
         batches = math.ceil(n / BATCH_SIZE)
         log(f"[main] {name}: {n} molecules, {batches} batches, launches "
-            f"{counts}, {n / seconds:.1f} molecules/s end to end "
-            f"({seconds:.3f} s, featurization included) on {card}")
+            f"{counts} (tensor cores {tc}), {n / seconds:.1f} molecules/s "
+            f"end to end ({seconds:.3f} s, featurization included) on "
+            f"{card}")
         want = run("cpu", "cpu")          # the plain versions on the CPU
         check(counts["band_rev_layer"] == (DEPTH - 1) * batches, counts)
         check(counts["atom_readout"] == batches, counts)
         check(counts["band_rev_bwd"] == 0, counts)
         check(all(counts[k] == 0 for k in PLAIN_BAND_KERNELS), counts)
+        # every layer on the tensor cores at the default "high"; none at
+        # "highest"
+        rev_tc = 0 if name == "regression_highest" else counts["band_rev_layer"]
+        check(tc == dict(dict.fromkeys(tc, 0), band_rev_layer=rev_tc),
+              f"tensor-core launches {tc}")
         for k in launches:
             launches[k] += counts[k]
+        for k in tc_launches:
+            tc_launches[k] += tc[k]
         check(got.shape == want.shape == (n, 1), (got.shape, want.shape))
         check(np.isfinite(got).all(), "non-finite predictions")
         err = np.abs(got - want).max()
         log(f"[main] {name}: max |gpu - cpu| {err:.3e}")
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-    return launches
+    return launches, tc_launches
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -1041,6 +1201,7 @@ def training_path(card):
                                         "regression.csv"), False),
             ("polymer", poly_csv, True)]
     launches = dict.fromkeys(bm.launch_counts(), 0)
+    tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
     for name, data_path, polymer in jobs:
         epochs = TRAIN_EPOCHS[name]
 
@@ -1079,8 +1240,15 @@ def training_path(card):
         check(counts["band_rev_bwd"] == (DEPTH - 1) * steps, counts)
         check(counts["atom_readout"] == forwards, counts)
         check(all(counts[k] == 0 for k in PLAIN_BAND_KERNELS), counts)
+        # the default band_precision "high": every layer on the tensor cores
+        tc = bm.tc_launch_counts()
+        check(tc == dict(dict.fromkeys(tc, 0),
+                         band_rev_layer=counts["band_rev_layer"]),
+              f"tensor-core launches {tc}")
         for k in launches:
             launches[k] += counts[k]
+        for k in tc_launches:
+            tc_launches[k] += tc[k]
 
         model_dir = os.path.join(cfg.save_dir, "fold_0", "model_0")
         with open(os.path.join(model_dir, "train_val_loss_log.csv")) as f:
@@ -1121,7 +1289,7 @@ def training_path(card):
             dtype=float)
         check(preds.shape == (n, 1) and np.isfinite(preds).all(),
               "predictions from the trained checkpoint")
-    return launches
+    return launches, tc_launches
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -1436,12 +1604,15 @@ def main() -> int:
     card = card_and_build()
     gb = bench_batch()
     results, B, A = kernel_phase(dev, gb)
-    launches = main_path(card)
-    plain_band, tc_launches = plain_band_path(card, dev)
-    for counts in (training_path(card), plain_band,
-                   probe_path(card, dev, gb, results)):
+    launches, tc_launches = main_path(card)
+    training, training_tc = training_path(card)
+    plain_band, plain_band_tc = plain_band_path(card, dev)
+    for counts in (training, plain_band, probe_path(card, dev, gb, results)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
+    for counts in (training_tc, plain_band_tc):
+        for name, count in counts.items():
+            tc_launches[name] += count
     check(all(count > 0 for count in launches.values()),
           f"a kernel was never launched by a main path: {launches}")
     check(all(count > 0 for count in tc_launches.values()),
@@ -1485,7 +1656,8 @@ def main() -> int:
             "ms_train_batch", "ms_train_batch_idle_start", "ms_pure",
             "ms_layer_full", "ms_split", "library_tf32_ms",
             "max_rel_err_fp64", "ms_jax_shape", "library_ms_jax_shape",
-            "ms_highest", "bound_ms_highest", "ms_with_z_highest",
+            "ms_highest", "ms_default", "bound_ms_highest",
+            "ms_with_z_highest",
             "ms_train_batch_highest", "tc_launches")
             if k in r})
         kernels.append(entry)

@@ -226,11 +226,7 @@ int launch_tc(const float* m, const float* inp, const float* wh,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   auto* wsplit = static_cast<unsigned char*>(scratch);
-  const int nkc = (H + tc::KC - 1) / tc::KC;
-  const int pieces = ((H + tc::NP - 1) / tc::NP) * nkc * 8 * tc::NP;
-  tc::split_wh_kernel<<<(pieces + 255) / 256, 256, 0, stream>>>(
-      wh, wsplit, H, nkc, pieces);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = tc::split_wh(wh, wsplit, H, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return passes == 3
       ? launch_tc_kernel<EPILOGUE, 3>(m, inp, wsplit, w, rowptr, out, z_out,

@@ -282,6 +282,18 @@ __global__ void split_wh_kernel(const float* __restrict__ wh,
   *reinterpret_cast<uint4*>(dst + B_BYTES) = lo;
 }
 
+// Host side: W_h (H x H, (in, out)) split into `scratch`
+// (scratch_bytes(H) bytes) on `stream`, before a kernel runs the stage on
+// it; returns the launch's error.
+inline cudaError_t split_wh(const float* wh, unsigned char* scratch, int H,
+                            cudaStream_t stream) {
+  const int nkc = (H + KC - 1) / KC;
+  const int pieces = ((H + NP - 1) / NP) * nkc * 8 * NP;
+  split_wh_kernel<<<(pieces + 255) / 256, 256, 0, stream>>>(wh, scratch, H,
+                                                            nkc, pieces);
+  return cudaGetLastError();
+}
+
 // L2 prefetch of columns [c0, c1) of the block's rows of x: one request
 // per 128-byte line, spread over the block's threads
 __device__ __forceinline__ void prefetch_rows(const float* x, int row0,

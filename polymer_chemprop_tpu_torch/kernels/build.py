@@ -107,6 +107,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.band_rev_layer_f32.argtypes = [p, p, p, p, p, p, p, p, p,
                                            i, i, i, p]
         lib.band_rev_layer_f32.restype = i
+        lib.band_rev_layer_tc.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                          i, i, i, i, p]
+        lib.band_rev_layer_tc.restype = i
         lib.band_rev_layer_smem_bytes.argtypes = [i]
         lib.band_rev_layer_smem_bytes.restype = ctypes.c_size_t
     elif name == "band_rev_bwd":

@@ -35,11 +35,13 @@ The layer form of the sorted branch is chosen from the configuration alone
   symmetrized with their reverses before each layer, which needs the
   explicit ``srev`` gather, so the layer is
   :func:`~..ops.band_mpnn.band_matmul_act_step_sorted` on the residual
-  pre-permuted once before the loop. Its product runs at the
-  configuration's ``band_precision``, as the JAX package's band kernels
-  do: ``"high"`` (the default; three bf16 passes on the tensor cores),
-  ``"default"`` (one pass) or ``"highest"`` (FP32). The other forms
-  compute FP32 at every setting.
+  pre-permuted once before the loop.
+
+  The product of these two forms runs at the configuration's
+  ``band_precision``, as the JAX package's band kernels do: ``"high"``
+  (the default; three bf16 passes on the tensor cores), ``"default"``
+  (one pass) or ``"highest"`` (FP32). The ``plain`` form computes FP32
+  (or bfloat16 linear layers) at every setting.
 * ``"plain"``: ``bias``, bfloat16 compute or a wider hidden size: the W_h
   product is not fused; the layer is
   :func:`~..ops.band_mpnn.band_message_step_sorted` (the plain band
@@ -177,7 +179,8 @@ class MPNEncoder(nn.Module):
                 if form == "rev":
                     message = band_rev_layer(
                         message, inputs, wh, aux["w_sorted"],
-                        aux["src_sorted"], srev, aux["rowptr"], self.act_name)
+                        aux["src_sorted"], srev, aux["rowptr"], self.act_name,
+                        cfg.band_precision)
                 elif form == "matmul_act":
                     message = band_matmul_act_step_sorted(
                         message, wh, inputs_srev, aux, self.act_name,

@@ -23,18 +23,23 @@
   (csrc/band_matmul.cu; replaces ``_band_matmul_act_kernel``), and
   :func:`band_matmul`: ``z @ W_h`` (the same source's second function;
   replaces ``_band_matmul_kernel``). Differentiable in ``m``, ``W_h`` and
-  ``inp_srev``. Their ``precision`` is the JAX package's
-  ``band_precision``: ``"highest"`` (the default, as the JAX ops') takes
-  the FP32 product (entry points ``*_f32``); ``"high"`` the split-bf16
-  product ``z_hi W_hi + z_hi W_lo + z_lo W_hi`` and ``"default"``
-  ``z_hi W_hi``, both on the tensor cores (``*_tc``,
-  csrc/band_tile_sm90.cuh); :func:`split_matmul` is their plain product.
-  The backward is the same at every precision (FP32), as in the JAX
-  package.
+  ``inp_srev``.
+
 * :func:`band_message_step_sorted`, :func:`band_matmul_step_sorted` and
   :func:`band_matmul_act_step_sorted`: the JAX package's public ops of the
   same names, each one of the above followed by the ``srev`` row gather
   :func:`permute_rows`, which stays outside the kernels.
+
+The three W_h-fused kernels (:func:`band_rev_layer`,
+:func:`band_matmul_act`, :func:`band_matmul`) take a ``precision``, the JAX
+package's ``band_precision``: ``"highest"`` (the default, as the JAX ops')
+takes the FP32 product (entry points ``*_f32``); ``"high"`` the split-bf16
+product ``z_hi W_hi + z_hi W_lo + z_lo W_hi`` and ``"default"``
+``z_hi W_hi``, both on the tensor cores (``*_tc``,
+csrc/band_tile_sm90.cuh); :func:`split_matmul` is their plain product. z
+is the FP32 aggregation at every precision, and the backward is FP32 at
+every precision. The bandwidth kernels (:func:`band_rev_bwd`,
+:func:`atom_readout`, :func:`band_agg`, :func:`band_bwd`) are FP32.
 
 ``run(v)`` is the CSR run ``[rowptr[v], rowptr[v + 1])`` of
 :mod:`.sorted_aux`. Padding rows lie in no run: the plain band forms give
@@ -42,8 +47,8 @@ them ``z = -m`` and ``dm = -g``. A wrapper given CPU tensors computes the
 plain PyTorch version beside it; given CUDA tensors it launches its kernel
 on the current stream or raises. There is no fallback from one to the
 other. Each wrapper counts its kernel launches in ``<wrapper>.launches``;
-:func:`band_matmul_act` and :func:`band_matmul` count their tensor-core
-launches once more in ``<wrapper>.tc_launches`` (:func:`tc_launch_counts`).
+the three W_h-fused ones count their tensor-core launches once more in
+``<wrapper>.tc_launches`` (:func:`tc_launch_counts`).
 
 The gradients are hand-written ``torch.autograd.Function``s that mirror the
 JAX package's ``custom_vjp``s (pallas_mpnn.py:664-676, 806-829, 966-986,
@@ -209,10 +214,12 @@ def band_rev_z_plain(m: torch.Tensor, w_sorted: torch.Tensor,
 def band_rev_layer_plain(m: torch.Tensor, inp: torch.Tensor,
                          wh: torch.Tensor, w_sorted: torch.Tensor,
                          src_sorted: torch.Tensor, srev: torch.Tensor,
-                         rowptr: torch.Tensor, act: str) -> torch.Tensor:
-    """Plain version of :func:`band_rev_layer`."""
+                         rowptr: torch.Tensor, act: str,
+                         precision: str = "highest") -> torch.Tensor:
+    """Plain version of :func:`band_rev_layer`, the product at
+    ``precision`` (:func:`band_product`)."""
     z = band_rev_z_plain(m, w_sorted, src_sorted, srev, rowptr)
-    return get_activation(act)(inp + z @ wh)
+    return get_activation(act)(inp + band_product(z, wh, precision))
 
 
 def band_rev_bwd_plain(g: torch.Tensor, w_sorted: torch.Tensor,
@@ -297,16 +304,20 @@ def _check_fits(kernel: str, hidden: int) -> None:
 def band_rev_layer_forward(m: torch.Tensor, inp: torch.Tensor,
                            wh: torch.Tensor, w_sorted: torch.Tensor,
                            src_sorted: torch.Tensor, srev: torch.Tensor,
-                           rowptr: torch.Tensor, act: str, want_z: bool
+                           rowptr: torch.Tensor, act: str, want_z: bool,
+                           precision: str = "highest"
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer without autograd: ``(out, z)`` with ``z = M m`` written
-    only when ``want_z`` (training), else ``(out, None)``."""
+    only when ``want_z`` (training), else ``(out, None)``. ``precision``
+    picks the FP32 entry (``"highest"``) or the tensor-core one."""
     act = act.lower()
     if act not in ACT_IDS:
         raise ValueError(f'Activation "{act}" not supported.')
+    check_precision(precision)
     if m.device.type == "cpu":
         z = band_rev_z_plain(m, w_sorted, src_sorted, srev, rowptr)
-        return get_activation(act)(inp + z @ wh), (z if want_z else None)
+        out = get_activation(act)(inp + band_product(z, wh, precision))
+        return out, (z if want_z else None)
     if m.device.type != "cuda":
         raise ValueError(f"band_rev_layer: unsupported device {m.device}")
     B, H = m.shape
@@ -323,15 +334,29 @@ def band_rev_layer_forward(m: torch.Tensor, inp: torch.Tensor,
     lib = load("band_rev_layer")
     out = torch.empty_like(m)
     z = torch.empty_like(m) if want_z else None
+    z_ptr = z.data_ptr() if want_z else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.band_rev_layer_f32(
-            m.data_ptr(), inp.data_ptr(), wh.data_ptr(), w_sorted.data_ptr(),
-            src_sorted.data_ptr(), srev.data_ptr(), rowptr.data_ptr(),
-            out.data_ptr(), z.data_ptr() if want_z else None, B, H,
-            ACT_IDS[act], stream)
+        if precision == "highest":
+            err = lib.band_rev_layer_f32(
+                m.data_ptr(), inp.data_ptr(), wh.data_ptr(),
+                w_sorted.data_ptr(), src_sorted.data_ptr(), srev.data_ptr(),
+                rowptr.data_ptr(), out.data_ptr(), z_ptr, B, H, ACT_IDS[act],
+                stream)
+        else:
+            # W_h split into bf16 halves, padded and swizzled, per call
+            scratch = torch.empty(tc_scratch_bytes(H), dtype=torch.uint8,
+                                  device=dev)
+            err = lib.band_rev_layer_tc(
+                m.data_ptr(), inp.data_ptr(), wh.data_ptr(),
+                scratch.data_ptr(), w_sorted.data_ptr(),
+                src_sorted.data_ptr(), srev.data_ptr(), rowptr.data_ptr(),
+                out.data_ptr(), z_ptr, B, H, ACT_IDS[act],
+                TC_PASSES[precision], stream)
     _raise_on(err, "band_rev_layer")
     band_rev_layer.launches += 1
+    if precision != "highest":
+        band_rev_layer.tc_launches += 1
     return out, z
 
 
@@ -546,13 +571,15 @@ class _BandRevLayerFn(torch.autograd.Function):
     """``act(inp + (M m) @ W_h)`` with the VJP of
     band_rev_layer_step_sorted: ``z`` is written only when a gradient is
     wanted, and the backward needs no pre-activation (the activation's
-    derivative is taken from its output)."""
+    derivative is taken from its output). The backward is FP32 at every
+    precision."""
 
     @staticmethod
-    def forward(ctx, m, wh, inp, w_sorted, src_sorted, srev, rowptr, act):
+    def forward(ctx, m, wh, inp, w_sorted, src_sorted, srev, rowptr, act,
+                precision):
         want_z = any(ctx.needs_input_grad[:3])
         out, z = band_rev_layer_forward(m, inp, wh, w_sorted, src_sorted,
-                                        srev, rowptr, act, want_z)
+                                        srev, rowptr, act, want_z, precision)
         if want_z:
             ctx.save_for_backward(z, wh, out, w_sorted, srev, rowptr)
             ctx.act = act.lower()
@@ -569,7 +596,7 @@ class _BandRevLayerFn(torch.autograd.Function):
             gw = (g_pre @ wh.t()).contiguous()
             dm = band_rev_bwd(gw, w_sorted, srev, rowptr)
         return (dm, dwh, g_pre if need_inp else None,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 class _AtomReadoutFn(torch.autograd.Function):
@@ -673,13 +700,14 @@ class _PermuteRowsFn(torch.autograd.Function):
 def band_rev_layer(m: torch.Tensor, inp: torch.Tensor, wh: torch.Tensor,
                    w_sorted: torch.Tensor, src_sorted: torch.Tensor,
                    srev: torch.Tensor, rowptr: torch.Tensor,
-                   act: str) -> torch.Tensor:
-    """One rev-fused wD-MPNN layer over dst-sorted bonds.
+                   act: str, precision: str = "highest") -> torch.Tensor:
+    """One rev-fused wD-MPNN layer over dst-sorted bonds, the product at
+    ``precision`` (module docstring).
 
     m, inp: (B, H) f32; wh: (H, H) f32 in (in, out) layout; w_sorted: (B,)
     f32; src_sorted, srev: (B,) int32; rowptr: (A + 1,) int32."""
     return _BandRevLayerFn.apply(m, wh, inp, w_sorted, src_sorted, srev,
-                                 rowptr, act)
+                                 rowptr, act, precision)
 
 
 def atom_readout(m: torch.Tensor, w_sorted: torch.Tensor,
@@ -774,7 +802,7 @@ def band_matmul_act_step_sorted(m: torch.Tensor, wh: torch.Tensor,
 
 WRAPPERS = (band_rev_layer, band_rev_bwd, atom_readout, band_agg, band_bwd,
             band_matmul_act, band_matmul)
-TC_WRAPPERS = (band_matmul_act, band_matmul)
+TC_WRAPPERS = (band_rev_layer, band_matmul_act, band_matmul)
 
 
 def reset_launch_counts() -> None:

@@ -1,28 +1,31 @@
-"""``band_precision`` in the port: the split-bf16 product of the band-matmul
-layer forms against the JAX package, on the CPU.
+"""``band_precision`` in the port: the split-bf16 product of the W_h-fused
+layer forms (``rev``, the default configuration's, and ``matmul_act``,
+``undirected``) against the JAX package, on the CPU.
 
 * the port's split product (``split_matmul``, three passes) against the
   JAX package's ``_dot_band`` at ``Precision.HIGH``: within 1e-6 x max|JAX|
   (the same exactly representable products, float32 sums in another
   order);
-* ``band_matmul_plain`` and ``band_matmul_act_plain`` at ``"high"`` against
-  ``band_matmul_step_sorted`` and ``band_matmul_act_step_sorted`` at
-  ``Precision.HIGH`` (Pallas kernels in interpret mode), unit and polymer
-  weights: within 5e-5 x max|JAX|. The JAX kernel also splits its
-  aggregation ``q @ m`` into bf16 halves, while the port sums the CSR run
-  in float32, so z differs by about 2^-17 of |m| before the product.
-  Measured here: 5.3e-6 without activation, up to 2.6e-5 after tanh (whose
-  output is at most 1 while its inputs are larger), the same size as
-  JAX's own HIGH against HIGHEST (3.9e-5), so the tolerance stays at 5e-5;
-* the ``undirected`` model at ``"high"`` against JAX ``apply_model`` at
-  ``band_precision="high"`` on its sorted-resident Pallas branch:
-  predictions rtol 1e-4, atol 1e-5 (the JAX package's own tolerance for
-  this setting), the loss rtol 1e-4 and every gradient within 1e-4 x its
-  largest entry (the backward is FP32 in the port, split in the JAX
-  kernels);
-* ``"default"`` (one bf16 pass) against FP64 within 1e-2 x max: XLA on
-  the CPU computes JAX's ``Precision.DEFAULT`` in full float32, so there
-  is no JAX reference for it here;
+* ``band_matmul_plain``, ``band_matmul_act_plain`` and
+  ``band_rev_layer_plain`` at ``"high"`` against
+  ``band_matmul_step_sorted``, ``band_matmul_act_step_sorted`` and
+  ``band_rev_layer_step_sorted`` at ``Precision.HIGH`` (Pallas kernels in
+  interpret mode), unit and polymer (untidy) weights, relu, tanh and selu:
+  within 5e-5 x max|JAX|. The JAX kernels also split their aggregation
+  ``q @ m`` into bf16 halves, while the port sums the CSR run in float32,
+  so z differs by about 2^-17 of |m| before the product. Measured here:
+  5.3e-6 without activation, up to 2.6e-5 after tanh (whose output is at
+  most 1 while its inputs are larger), the same size as JAX's own HIGH
+  against HIGHEST (3.9e-5), so the tolerance stays at 5e-5;
+* the default (directed) and the ``undirected`` model at ``"high"``
+  against JAX ``apply_model`` at ``band_precision="high"`` on its
+  sorted-resident Pallas branch: predictions rtol 1e-4, atol 1e-5 (the
+  JAX package's own tolerance for this setting), the loss rtol 1e-4 and
+  every gradient within 1e-4 x its largest entry (the backward is FP32 in
+  the port, split in the JAX kernels);
+* ``"default"`` (one bf16 pass) against FP64 within 1e-2 x max, for both
+  forms: XLA on the CPU computes JAX's ``Precision.DEFAULT`` in full
+  float32, so there is no JAX reference for it here;
 * ``EncoderConfig`` rejects an unknown ``band_precision``; a model built
   from a configuration carries it, and its layer follows it.
 
@@ -57,6 +60,7 @@ from polymer_chemprop_tpu_torch.models.model import (
     MoleculeModel,
     build_model_config,
 )
+from polymer_chemprop_tpu_torch.models.nn import get_activation
 from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
 from polymer_chemprop_tpu_torch.train.step import make_loss_fn
 
@@ -116,11 +120,41 @@ def test_band_matmul_plain_at_high_matches_jax_kernel(interpret_mode, kind):
     assert _max_err(got, highest) > 1e-8
 
 
+def _rev_case(c):
+    """``(m, inp)`` of a case zero on padding rows, as the default
+    encoder keeps its messages, and the rev form's index tensors."""
+    real = (np.arange(c.B) < c.n_real)[:, None].astype(np.float32)
+    idx = (c.t["w_sorted"], c.t["src_sorted"], c.t["srev"], c.t["rowptr"])
+    return c.m * real, c.inp * real, idx
+
+
 @pytest.mark.parametrize("act", ["relu", "tanh", "selu"])
 @pytest.mark.parametrize("kind", bo.KINDS)
-def test_band_matmul_act_plain_at_high_matches_jax_kernel(interpret_mode, kind,
-                                                          act):
+@pytest.mark.parametrize("form", ["matmul_act", "rev"])
+def test_band_matmul_act_plain_at_high_matches_jax_kernel(interpret_mode,
+                                                          form, kind, act):
+    """The fused layer's plain version at "high" against the JAX op at
+    ``Precision.HIGH``: ``band_matmul_act_step_sorted`` or, for the rev
+    form, ``band_rev_layer_step_sorted``."""
     c = bo.Case(kind, seed=len(act))
+    if form == "rev":
+        assert "rs_rev" in c.j          # the JAX rev-fused kernel runs
+        m, inp, idx = _rev_case(c)
+        want = np.asarray(jpm.band_rev_layer_step_sorted(
+            bo._pad(m), jnp.asarray(c.wh), bo._pad(inp), c.j, act,
+            HIGH))[:, :H]
+        before = bm.launch_counts(), bm.tc_launch_counts()
+        got = bm.band_rev_layer(torch.from_numpy(m), torch.from_numpy(inp),
+                                torch.from_numpy(c.wh), *idx, act,
+                                "high").numpy()
+        assert (bm.launch_counts(), bm.tc_launch_counts()) == before
+        assert _max_err(got, want) <= OP_RTOL
+        assert (got[c.n_real:] == 0).all()
+        highest = bm.band_rev_layer_plain(
+            torch.from_numpy(m), torch.from_numpy(inp),
+            torch.from_numpy(c.wh), *idx, act).numpy()
+        assert _max_err(got, highest) > 1e-8       # "high" is not "highest"
+        return
     inp_srev = c.inp[c.aux.srev]
     want = np.asarray(jpm.band_matmul_act_step_sorted(
         bo._pad(c.m), jnp.asarray(c.wh), bo._pad(inp_srev), c.j, act,
@@ -136,8 +170,27 @@ def test_band_matmul_act_plain_at_high_matches_jax_kernel(interpret_mode, kind,
 
 
 @pytest.mark.parametrize("kind", bo.KINDS)
-def test_default_precision_is_one_bf16_pass(kind):
+@pytest.mark.parametrize("form", ["matmul_act", "rev"])
+def test_default_precision_is_one_bf16_pass(form, kind):
     c = bo.Case(kind)
+    if form == "rev":
+        # the layer's pre-activation: leakyrelu is linear above 0 and keeps
+        # 0.1 of it below, so the rev layer's output is held here
+        m, inp, idx = _rev_case(c)
+        m, inp, wh = (torch.from_numpy(x) for x in (m, inp, c.wh))
+        act = get_activation("leakyrelu")
+        z = bm.band_rev_z_plain(m.double(), idx[0].double(), *idx[1:])
+        exact = act(inp.double() + z @ wh.double()).numpy()
+        got = bm.band_rev_layer_plain(m, inp, wh, *idx, "leakyrelu",
+                                      "default")
+        err = _max_err(got, exact)
+        assert 1e-5 < err <= DEFAULT_RTOL
+        zf = bm.band_rev_z_plain(m, *idx)
+        np.testing.assert_array_equal(
+            got.numpy(), act(inp + bm.split_matmul(zf, wh, 1)).numpy())
+        high = bm.band_rev_layer_plain(m, inp, wh, *idx, "leakyrelu", "high")
+        assert _max_err(high, exact) < err / 20
+        return
     m, wh = torch.from_numpy(c.m), torch.from_numpy(c.wh)
     z = bm.band_agg_plain(m.double(), c.t["w_sorted"].double(),
                           c.t["rowptr"])
@@ -154,22 +207,28 @@ def test_default_precision_is_one_bf16_pass(kind):
     assert _max_err(high, exact) < err / 20
 
 
-def _undirected_high(seed=3):
-    enc_kw, form, data = pb.CONFIGS["undirected"]
+def _undirected_high(form="matmul_act", seed=3):
+    """The model at "high" whose layer takes ``form``: ``undirected``
+    (``matmul_act``) or the default configuration (``rev``); both run on
+    the molecules of tests/test_torch_plain_band.py."""
+    enc_kw, _, data = pb.CONFIGS["undirected"]
+    if form == "rev":
+        enc_kw = {}
     enc = dict(atom_fdim=133, bond_fdim=147, hidden_size=32, depth=3,
                band_precision="high", **enc_kw)
     model_kw = dict(ffn_num_layers=2, ffn_hidden_size=32, num_tasks=2)
     jcfg = JaxModelConfig(encoder=JaxEncoderConfig(**enc), **model_kw)
     cfg = ModelConfig(encoder=EncoderConfig(**enc), **model_kw)
-    assert cfg.encoder.layer_form() == form == "matmul_act"
+    assert cfg.encoder.layer_form() == form
     params = jax.tree_util.tree_map(
         np.asarray, init_model(jax.random.PRNGKey(seed), jcfg))
     model = convert.load_jax_params(MoleculeModel(cfg), params)
     return jcfg, cfg, data, params, model
 
 
-def test_undirected_model_at_high_matches_apply_model(interpret_mode):
-    jcfg, cfg, data, params, model = _undirected_high()
+@pytest.mark.parametrize("form", ["matmul_act", "rev"])
+def test_undirected_model_at_high_matches_apply_model(interpret_mode, form):
+    jcfg, cfg, data, params, model = _undirected_high(form)
     gb, jgb, n = pb._graphs(data)
     batch = jax.tree_util.tree_map(jnp.asarray, jgb.arrays(pallas=True))
     want = np.asarray(apply_model(params, [batch], jcfg))[:n]
@@ -187,11 +246,12 @@ def test_undirected_model_at_high_matches_apply_model(interpret_mode):
     assert np.abs(other - got).max() > 0
 
 
-def test_undirected_gradients_at_high_match_jax_grad(interpret_mode):
-    jcfg, cfg, _, params, model = _undirected_high()
+@pytest.mark.parametrize("form", ["matmul_act", "rev"])
+def test_undirected_gradients_at_high_match_jax_grad(interpret_mode, form):
+    jcfg, cfg, _, params, model = _undirected_high(form)
     name = "undirected"
-    # pb._batch builds the port's batch from pb's own (FP32) configuration;
-    # the graphs and targets are the same
+    # pb._batch builds the port's batch from pb's own (FP32, undirected)
+    # configuration; the graphs and targets are the same for both forms
     jbatch, tbatch = pb._batch(name, pallas=True)
     tw = np.linspace(0.5, 1.5, cfg.num_tasks).astype(np.float32)
     want_loss, want = jax.value_and_grad(

@@ -7,9 +7,10 @@ runs on a GPU machine without it:
 
 Tolerance: FP32 with another summation order,
 max|kernel - plain| <= 1e-5 * max|plain| + 1e-6; the tensor-core stage
-(``band_precision`` "high" and "default") against the plain version at the
+(``band_precision`` "high" and "default", of ``band_rev_layer``,
+``band_matmul_act`` and ``band_matmul``) against the plain version at the
 same precision, the same arithmetic summed in another order, with the same
-tolerance.
+tolerance on the pre-activation (``_close_act``).
 """
 
 import numpy as np
@@ -62,17 +63,36 @@ def _close(got, want):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
 @pytest.mark.parametrize("act", band_mpnn.ACT_IDS)
 @pytest.mark.parametrize("kind", ["molecules", "polymer"])
 @pytest.mark.parametrize("H", [32, 300, 333])
-def test_band_rev_layer_matches_plain(cuda, kind, act, H):
+def test_band_rev_layer_matches_plain(cuda, kind, act, H, precision):
+    """At "highest" the FP32 entry against the plain version; at "high"
+    and "default" the tensor-core entry against the plain product at the
+    same precision on the kernel's own z and, at "high", on the plain z
+    (``_tc_product_refs``). Padding rows stay exactly 0 at every
+    precision."""
+    from polymer_chemprop_tpu_torch.models.nn import get_activation
     m, inp, wh, a, n_real = _batch(kind, H, cuda)
-    args = (m, inp, wh, a["w_sorted"], a["src_sorted"], a["srev"],
-            a["rowptr"], act)
-    before = band_mpnn.band_rev_layer.launches
-    got = band_mpnn.band_rev_layer(*args)
-    assert band_mpnn.band_rev_layer.launches == before + 1
-    _close(got, band_mpnn.band_rev_layer_plain(*args))
+    idx = (a["w_sorted"], a["src_sorted"], a["srev"], a["rowptr"])
+    got, launches = _tc_delta(band_mpnn.band_rev_layer, m, inp, wh, *idx,
+                              act, precision)
+    tc = precision != "highest"
+    assert launches == [{"band_rev_layer": 1},
+                        {"band_rev_layer": 1} if tc else {}]
+    if not tc:
+        _close(got, band_mpnn.band_rev_layer_plain(m, inp, wh, *idx, act))
+    else:
+        _, z = band_mpnn.band_rev_layer_forward(m, inp, wh, *idx, act, True,
+                                                precision)
+        z_plain = band_mpnn.band_rev_z_plain(m, *idx)
+        for pre in _tc_product_refs(z, z_plain, wh, precision, inp):
+            want = get_activation(act)(pre)
+            _close_act(got, want, pre, act)
+            if act == "relu":
+                _close(got, want)
+    torch.cuda.synchronize()
     assert (got[n_real:] == 0).all()
 
 
@@ -104,20 +124,28 @@ def test_band_rev_bwd_matches_plain(cuda, kind, H):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
 @pytest.mark.parametrize("kind", ["molecules", "polymer"])
-@pytest.mark.parametrize("H", [32, 300])
-def test_band_rev_layer_writes_z(cuda, kind, H):
+@pytest.mark.parametrize("H", [32, 300, 1495])
+def test_band_rev_layer_writes_z(cuda, kind, H, precision):
+    """z against the plain z, 0 on padding rows, and on the tensor-core
+    entry bit for bit the FP32 entry's z; the output the same with z on
+    and off."""
     m, inp, wh, a, n_real = _batch(kind, H, cuda)
-    out, z = band_mpnn.band_rev_layer_forward(
-        m, inp, wh, a["w_sorted"], a["src_sorted"], a["srev"], a["rowptr"],
-        "relu", want_z=True)
-    _close(z, band_mpnn.band_rev_z_plain(m, a["w_sorted"], a["src_sorted"],
-                                         a["srev"], a["rowptr"]))
+    idx = (a["w_sorted"], a["src_sorted"], a["srev"], a["rowptr"])
+    out, z = band_mpnn.band_rev_layer_forward(m, inp, wh, *idx, "relu",
+                                              True, precision)
+    _close(z, band_mpnn.band_rev_z_plain(m, *idx))
     assert (z[n_real:] == 0).all()
     out_only, none = band_mpnn.band_rev_layer_forward(
-        m, inp, wh, a["w_sorted"], a["src_sorted"], a["srev"], a["rowptr"],
-        "relu", want_z=False)
+        m, inp, wh, *idx, "relu", False, precision)
+    torch.cuda.synchronize()
     assert none is None and torch.equal(out, out_only)
+    if precision != "highest":
+        z_f32 = band_mpnn.band_rev_layer_forward(m, inp, wh, *idx, "relu",
+                                                 True, "highest")[1]
+        torch.cuda.synchronize()
+        assert torch.equal(z, z_f32)
 
 
 @pytest.mark.gpu
@@ -168,8 +196,9 @@ def test_inference_does_not_write_z(cuda, monkeypatch):
     m, inp, wh, a, _ = _batch("molecules", 32, cuda)
     seen = []
     real = band_mpnn.band_rev_layer_forward
+    # want_z, the ninth argument
     monkeypatch.setattr(band_mpnn, "band_rev_layer_forward",
-                        lambda *args: seen.append(args[-1]) or real(*args))
+                        lambda *args: seen.append(args[8]) or real(*args))
     args = (m, inp, wh, a["w_sorted"], a["src_sorted"], a["srev"],
             a["rowptr"], "relu")
     band_mpnn.band_rev_layer(*args)
@@ -364,8 +393,8 @@ def test_wrapper_rejects_bad_inputs(cuda):
 
 TC_WIDTHS = [37, 300, 1495]        # ragged in K and N, the default, widest
 # |act(a) - act(b)| <= slope |a - b|: selu's steepest slope is scale x alpha
-ACT_SLOPE = {"relu": 1.0, "tanh": 1.0,
-             "selu": 1.0507009873554805 * 1.6732632423543772}
+ACT_SLOPE = {"relu": 1.0, "leakyrelu": 1.0, "prelu": 1.0, "tanh": 1.0,
+             "elu": 1.0, "selu": 1.0507009873554805 * 1.6732632423543772}
 
 
 def _tc_product_refs(z, z_plain, wh, precision, inp=None):
@@ -404,11 +433,13 @@ def _tc_delta(fn, *args):
 @pytest.mark.gpu
 @pytest.mark.parametrize("precision", ["high", "default"])
 @pytest.mark.parametrize("H", TC_WIDTHS)
-def test_tc_stage_is_exact_on_structured_inputs(cuda, H, precision):
+@pytest.mark.parametrize("form", ["matmul", "rev"])
+def test_tc_stage_is_exact_on_structured_inputs(cuda, form, H, precision):
     """Small integers in m, unit weights and a permutation for W_h: every
     operand and product is exact in bf16, so the kernel must give the
     plain value bit for bit; a wrong swizzle, descriptor or fragment map
-    moves whole rows or columns."""
+    moves whole rows or columns. ``form``: ``band_matmul`` and
+    ``band_matmul_act``, or ``band_rev_layer``."""
     m, inp, _, _, a, n_real = _plain_band_operands("molecules", H, cuda)
     B = m.shape[0]
     t = torch.arange(B, device=cuda)[:, None]
@@ -417,6 +448,17 @@ def test_tc_stage_is_exact_on_structured_inputs(cuda, H, precision):
     ones = torch.ones_like(a["w_sorted"])
     perm = torch.randperm(H, generator=torch.Generator().manual_seed(H))
     wh = torch.eye(H, device=cuda)[perm.to(cuda)]
+    if form == "rev":
+        idx = (ones, a["src_sorted"], a["srev"], a["rowptr"])
+        (out, z), launches = _tc_delta(band_mpnn.band_rev_layer_forward, m,
+                                       inp, wh, *idx, "relu", True,
+                                       precision)
+        assert launches == [{"band_rev_layer": 1}, {"band_rev_layer": 1}]
+        want_z = band_mpnn.band_rev_z_plain(m, *idx)
+        torch.cuda.synchronize()
+        assert torch.equal(z, want_z)
+        assert torch.equal(out, torch.relu(inp + want_z @ wh))
+        return
     (out, z), launches = _tc_delta(band_mpnn.band_matmul_forward, m, wh, ones,
                                    a["rowptr"], precision)
     assert launches == [{"band_matmul": 1}, {"band_matmul": 1}]
@@ -510,6 +552,10 @@ def test_tc_function_gradients_match_autograd(cuda, kind, act):
     pre = inp + band_mpnn.band_agg_plain(m, *idx) @ wh
     inp = torch.where(pre.abs() < 1e-3,
                       inp + torch.where(pre >= 0, 2e-3, -2e-3), inp)
+    rev = (a["w_sorted"], a["src_sorted"], a["srev"], a["rowptr"])
+    pre_rev = inp + band_mpnn.band_rev_z_plain(m, *rev) @ wh
+    inp_rev = torch.where(pre_rev.abs() < 1e-3,
+                          inp + torch.where(pre_rev >= 0, 2e-3, -2e-3), inp)
     cases = [
         ((m, wh), lambda x, w: band_mpnn.band_matmul(x, w, *idx, "high"),
          lambda x, w: _straight_through(band_mpnn.band_agg_plain(x, *idx), w,
@@ -520,6 +566,11 @@ def test_tc_function_gradients_match_autograd(cuda, kind, act):
          lambda x, w, i: get_activation(act)(i + _straight_through(
              band_mpnn.band_agg_plain(x, *idx), w, "high")),
          {"band_matmul_act": 1, "band_bwd": 1}),
+        ((m, wh, inp_rev),
+         lambda x, w, i: band_mpnn.band_rev_layer(x, i, w, *rev, act, "high"),
+         lambda x, w, i: get_activation(act)(i + _straight_through(
+             band_mpnn.band_rev_z_plain(x, *rev), w, "high")),
+         {"band_rev_layer": 1, "band_rev_bwd": 1}),
     ]
     for operands, fn, plain, launches in cases:
         def grads(f):
@@ -541,9 +592,12 @@ def test_tc_shared_memory_is_fixed_and_scratch_matches(cuda):
     for H in (1, 37, 64, 65, 300, 304, 305, 1495, 1600):
         assert lib.band_matmul_tc_scratch_bytes(H) \
             == band_mpnn.tc_scratch_bytes(H)
+    m, inp, _, wh, a, _ = _plain_band_operands("molecules", 32, cuda)
     with pytest.raises(ValueError, match="band_precision"):
-        m, _, _, wh, a, _ = _plain_band_operands("molecules", 32, cuda)
         band_mpnn.band_matmul(m, wh, a["w_sorted"], a["rowptr"], "fp16")
+    with pytest.raises(ValueError, match="band_precision"):
+        band_mpnn.band_rev_layer(m, inp, wh, a["w_sorted"], a["src_sorted"],
+                                 a["srev"], a["rowptr"], "relu", "fp16")
 
 
 # -- the probes' kernels (band_ctrl, fused_matmul) ---------------------------

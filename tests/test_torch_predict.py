@@ -62,9 +62,11 @@ def _two_mol_csv(path):
 
 
 def _write_ckpts(tmp_path, n_models, num_tasks, scaler, **train_kw):
+    # band_precision "highest": the port's rev layer then computes FP32,
+    # as the JAX package's CPU (XLA) path does at every setting
     tcfg = JaxTrainConfig(hidden_size=64, depth=3, ffn_num_layers=2,
                           target_columns=[f"t{i}" for i in range(num_tasks)],
-                          **train_kw)
+                          band_precision="highest", **train_kw)
     mcfg = build_model_config(tcfg, num_tasks)
     ckpt_dir = tmp_path / "ckpts"
     for i in range(n_models):

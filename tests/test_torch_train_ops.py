@@ -226,8 +226,9 @@ def test_inference_passes_no_z_and_training_does(monkeypatch):
     m, inp, wh, _ = _layer_inputs(gb.f_bonds.shape[0], gb.n_bonds_real - 1, 0)
     seen = []
     real = band_mpnn.band_rev_layer_forward
+    # want_z, the ninth argument
     monkeypatch.setattr(band_mpnn, "band_rev_layer_forward",
-                        lambda *a: seen.append(a[-1]) or real(*a))
+                        lambda *a: seen.append(a[8]) or real(*a))
     T = torch.from_numpy
     rest = (T(inp), T(wh), t["w_sorted"], t["src_sorted"], t["srev"],
             t["rowptr"], "relu")
