@@ -31,7 +31,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    zero on padding rows (``z = -m`` and ``dm = -g`` there, bit for bit),
    their three Functions' gradients too, and ``band_agg`` / ``band_bwd``
    once more at hidden 1,600; the Python arithmetic that picks the layer
-   form by shape must equal the libraries' shared-memory answer.
+   form by shape must equal the libraries' shared-memory answer. The two
+   CSR-row kernels must equal the FP32 stage bit for bit (the same
+   ``fmaf`` chain in CSR order): ``band_agg``'s z is ``band_matmul``'s
+   FP32 z, ``atom_readout`` composed with ``a[src] - m[srev]`` is the FP32
+   ``band_rev_layer``'s z on real rows, and atom 0 reads exactly 0.
    ``band_matmul_act`` and ``band_matmul`` also run on their tensor-core
    stage (``band_precision`` "high" and "default") at hidden 300, 37 and
    1,495, held against their plain versions at the same precision: the
@@ -50,7 +54,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    without TF32; ``band_rev_layer`` likewise (its ``ms`` at "high"); the
    three once more at "default". All
    seven kernels are timed once more at the training batch's own shape
-   (batch 50).
+   (batch 50), each beside its bound from that batch. For
+   ``atom_readout`` and ``band_agg``: the achieved GB/s at the three
+   shapes (bench, training batch, hidden 1,600), and the CSR-row probe
+   (``probes/csr_rows_probe.py``) in-process: the run-length histograms of
+   the bench and training batches, and a copy of the same bytes and a
+   one-float launch as yardsticks.
 3. Serving path: write full-width checkpoints (hidden 300, depth 3, FFN
    2 x 300, seeded random weights) in the JAX package's ``.ckpt`` format,
    one for regression and one for polymer regression, and run the port's
@@ -149,6 +158,7 @@ PLAIN_BAND_EPOCHS = 3
 WIDE_HIDDEN, WIDE_MOLECULES = 1600, 100
 HIGHEST_MOLECULES = 100   # serving at band_precision "highest"
 REV_KERNELS = ("band_rev_layer", "band_rev_bwd")
+CSR_KERNELS = ("atom_readout", "band_agg")     # csrc/csr_rows.cuh
 PLAIN_BAND_KERNELS = ("band_agg", "band_bwd", "band_matmul_act",
                       "band_matmul")
 PROBE_REPS = 10
@@ -234,6 +244,44 @@ def bound(bytes_moved: float, ops: float,
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def work(name: str, B: int, A: int, H: int, n_real: int, run_len: int = 0,
+         precision: str = "high"):
+    """``(bytes, operations, peak)`` of one call of kernel ``name`` on a
+    batch of B bonds (n_real of them real), A atoms and hidden H: each
+    input read once, each output written once; the operations this
+    batch's runs need (``run_len``: the rev layer's summed run lengths of
+    src(t)); the peak for their type. The W_h-fused rows at "high" count
+    three bf16 passes on the tensor cores, at "highest" the FP32
+    product. Rows 3 and 6 take their bytes from the CSR-row probe's
+    ``kernel_bytes``."""
+    csr = B + (A + 1)                      # w and rowptr
+    if name in ("band_rev_layer", "band_matmul_act", "band_matmul"):
+        # m, inp (or z) and out, W_h; the rev layer also reads src, srev
+        nbytes = 4 * (3 * B * H + H * H + csr
+                      + (2 * B if name == "band_rev_layer" else 0))
+        if precision != "highest":
+            return nbytes, 3 * 2 * B * H * H, PEAK_BF16_TC_FLOPS
+        agg = {"band_rev_layer": 2 * run_len * H + B * H,
+               "band_matmul_act": 2 * n_real * H + 2 * B * H,
+               "band_matmul": 2 * n_real * H + B * H}[name]
+        return nbytes, 2 * B * H * H + agg, PEAK_FP32_FLOPS
+    if name in ("atom_readout", "band_agg"):
+        from polymer_chemprop_tpu_torch.probes.csr_rows_probe import (
+            kernel_bytes,
+        )
+        # one fma per run element, and one subtraction per element of z
+        ops = 2 * n_real * H + (B * H if name == "band_agg" else 0)
+        return kernel_bytes(name, B, A, H, n_real), ops, PEAK_FP32_FLOPS
+    # (B, H) in, (B, H) out; band_rev_bwd also reads srev. One add per run
+    # element, one fma per real and one negation per padding element
+    nbytes = 4 * (2 * B * H + csr + (B if name == "band_rev_bwd" else 0))
+    return nbytes, 3 * n_real * H + (B - n_real) * H, PEAK_FP32_FLOPS
+
+
+def gbps(nbytes: float, ms: float) -> float:
+    return nbytes / ms * 1e-6
 
 
 def time_against(r, name, kern, plain, lib, nbytes, ops, flush, shape,
@@ -327,6 +375,18 @@ def kernel_phase(dev, gb):
         check(err <= tol, "band_rev_layer's z disagrees with the plain z")
         check(n_real == B or z[n_real:].abs().max().item() == 0.0,
               "z of padding rows must be exactly zero")
+        # atom_readout composed with a[src] - m[srev] is that z bit for bit
+        # on the real rows (the same fmaf chain in CSR order), and atom 0,
+        # whose run is empty, reads exactly 0
+        atoms = bm.atom_readout(m, ws, rp)
+        composed = atoms[src.long()] - m[srev.long()]
+        torch.cuda.synchronize()
+        check(torch.equal(composed[:n_real], z[:n_real]),
+              "atom_readout[src] - m[srev] is not the FP32 layer's z")
+        check(bool((atoms[0] == 0).all()), "atom 0 must read exactly 0")
+        log(f"[kernel] atom_readout {weights}: a[src] - m[srev] equals the "
+            f"FP32 band_rev_layer z bit for bit on {n_real} real rows; "
+            "atom 0 reads exactly 0")
 
         # the two Functions' gradients against autograd through the plain
         # versions, on the card
@@ -392,36 +452,29 @@ def kernel_phase(dev, gb):
             s = g.new_zeros((A, H)).index_add_(0, dst, g_rev)
             return ws[:, None] * s[dst] - g_rev
 
-        run_len = (aux.rowptr[aux.src_sorted + 1]
-                   - aux.rowptr[aux.src_sorted]).astype(np.int64).sum()
-        # m, inp and out once, W_h, w, src, srev and rowptr once; at
-        # "highest" the FP32 product, one fma per run element and the
-        # subtraction, at "high" three bf16 passes on the tensor cores
-        b_bytes = 4 * (3 * B * H + H * H + 3 * B + (A + 1))
-        b_ops = 2 * B * H * H + 2 * int(run_len) * H + B * H
-        b_tc_ops = 3 * 2 * B * H * H
-        r_bytes = 4 * (n_real * H + n_real + A * H + (A + 1))
-        r_ops = 2 * n_real * H
-        # g read once, dm written once, w, srev and rowptr read once; one
-        # add per run element for S, one fma per real and one negation per
-        # padding element for dm
-        v_bytes = 4 * (2 * B * H + 2 * B + (A + 1))
-        v_ops = 3 * n_real * H + (B - n_real) * H
-        for name, kern, plain, lib, nbytes, ops, peak in (
+        run_len = int((aux.rowptr[aux.src_sorted + 1]
+                       - aux.rowptr[aux.src_sorted]).astype(np.int64).sum())
+        shape = (B, A, H, n_real, run_len)
+        for name, kern, plain, lib in (
                 ("band_rev_layer",
                  lambda: bm.band_rev_layer(m, inp, wh, ws, src, srev, rp,
                                            "relu", "high"),
                  lambda: bm.band_rev_layer_plain(m, inp, wh, ws, src, srev,
                                                  rp, "relu", "high"),
-                 library_layer, b_bytes, b_tc_ops, PEAK_BF16_TC_FLOPS),
+                 library_layer),
                 ("band_rev_bwd", lambda: bm.band_rev_bwd(g, ws, srev, rp),
                  lambda: bm.band_rev_bwd_plain(g, ws, srev, rp),
-                 library_bwd, v_bytes, v_ops, PEAK_FP32_FLOPS),
+                 library_bwd),
                 ("atom_readout", lambda: bm.atom_readout(m, ws, rp),
                  lambda: bm.atom_readout_plain(m, ws, rp),
-                 library_readout, r_bytes, r_ops, PEAK_FP32_FLOPS)):
+                 library_readout)):
+            nbytes, ops, peak = work(name, *shape)
             time_against(results[name], name, kern, plain, lib, nbytes, ops,
                          flush, f"B={B} A={A} H={H}", peak)
+        r = results["atom_readout"]
+        r["gbps"] = gbps(work("atom_readout", *shape)[0], r["ms"])
+        log(f"[time] atom_readout at B={B} A={A} H={H}: {r['gbps']:.1f} "
+            f"GB/s, {100 * r['bound_ms'] / r['ms']:.1f}% of the bytes bound")
         # row 1 at "highest" (the FP32 entry) beside "high", with z written
         # and not, and the yardstick with TF32 on
         from polymer_chemprop_tpu_torch.ops.band_mpnn import (
@@ -440,7 +493,8 @@ def kernel_phase(dev, gb):
         with float32_matmul_precision("high"):
             r["library_tf32_ms"] = timed_ms("band_rev_layer library TF32",
                                             library_layer, flush)
-        r["bound_ms_highest"] = bound(b_bytes, b_ops)[0]
+        r["bound_ms_highest"] = bound(
+            *work("band_rev_layer", *shape, "highest")[:2])[0]
         log(f"[time] band_rev_layer at B={B} H={H}: high {r['ms']:.4f} ms "
             f"(bound {r['bound_ms']:.4f}, {r['bound_by']}), default "
             f"{r['ms_default']:.4f} ms, highest "
@@ -449,8 +503,25 @@ def kernel_phase(dev, gb):
             f"{r['ms_with_z_highest']:.4f}, library FP32 "
             f"{r['library_ms']:.4f} TF32 {r['library_tf32_ms']:.4f}")
         plain_band_timings(bm, results, flush, T, rng, aux, A, B, H)
+        csr_probe(results, gb)
     train_batch_timings(bm, results, flush, dev)
     return results, B, A
+
+
+def csr_probe(results, gb):
+    """The CSR-row probe in-process on the bench batch: both kernels'
+    run-length histograms (printed by the probe), GB/s, and a copy of the
+    same bytes and a one-float launch as yardsticks, at the bench shape,
+    the training batch's shape and hidden 1,600."""
+    from polymer_chemprop_tpu_torch.probes import csr_rows_probe
+    out = csr_rows_probe.main(["--hidden", str(HIDDEN), "--wide", "1600"],
+                              batch=gb)
+    for shape, row in out.items():
+        log(f"[csr] {shape}: longest run {len(row['hist']) - 1} rows")
+        for name in CSR_KERNELS:
+            r = results[name]
+            r.setdefault("copy_ms", {})[shape] = row[name]["copy"]["ms"]
+            r.setdefault("launch_ms", {})[shape] = row[name]["launch"]["ms"]
 
 
 def rev_tc_checks(bm, results, weights, T, rng, aux, B, H):
@@ -585,6 +656,11 @@ def plain_band_checks(bm, results, weights, T, rng, aux, A, B, H):
     hold("band_agg", "band_agg", z, z_ref)
     check(torch.equal(z[n_real:], -m[n_real:]),
           "z of padding rows must equal -m")
+    z_f32 = bm.band_matmul_forward(m, wh, ws, rp, "highest")[1]
+    torch.cuda.synchronize()
+    check(torch.equal(z, z_f32), "band_agg's z is not band_matmul's FP32 z")
+    log(f"[kernel] band_agg {weights}: z equals the FP32 band_matmul z bit "
+        f"for bit on all {B} rows")
     dm = bm.band_bwd(g, ws, rp)
     hold("band_bwd", "band_bwd", dm, bm.band_bwd_plain(g, ws, rp))
     check(torch.equal(dm[n_real:], -g[n_real:]),
@@ -809,38 +885,28 @@ def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
         s = g.new_zeros((A, H)).index_add_(0, dst, g)
         return ws[:, None] * s[dst] - g
 
-    # m (or g) read once, the result written once, w and rowptr once; one
-    # fma per run element and one subtraction (or negation) per element
-    v_bytes = 4 * (2 * B * H + B + (A + 1))
-    agg_ops = 2 * n_real * H + B * H
-    bwd_ops = 3 * n_real * H + (B - n_real) * H
-    # the fused forms also read inp (band_matmul_act) or write z
-    # (band_matmul) and W_h; the product over all B rows on top: on the
-    # tensor cores at "high" (three bf16 passes), in FP32 at "highest"
-    f_bytes = 4 * (3 * B * H + H * H + B + (A + 1))
-    act_ops = 2 * B * H * H + 2 * n_real * H + 2 * B * H
-    mm_ops = 2 * B * H * H + 2 * n_real * H + B * H
-    tc_ops = 3 * 2 * B * H * H
-    for name, kern, plain, lib, nbytes, ops, peak in (
+    shape = (B, A, H, n_real)
+    for name, kern, plain, lib in (
             ("band_agg", lambda: bm.band_agg(m, ws, rp),
-             lambda: bm.band_agg_plain(m, ws, rp), library_agg, v_bytes,
-             agg_ops, PEAK_FP32_FLOPS),
+             lambda: bm.band_agg_plain(m, ws, rp), library_agg),
             ("band_bwd", lambda: bm.band_bwd(g, ws, rp),
-             lambda: bm.band_bwd_plain(g, ws, rp), library_bwd, v_bytes,
-             bwd_ops, PEAK_FP32_FLOPS),
+             lambda: bm.band_bwd_plain(g, ws, rp), library_bwd),
             ("band_matmul_act",
              lambda: bm.band_matmul_act(m, inp, wh, ws, rp, "relu", "high"),
              lambda: bm.band_matmul_act_plain(m, inp, wh, ws, rp, "relu",
                                               "high"),
-             lambda: torch.relu(torch.addmm(inp, library_agg(), wh)),
-             f_bytes, tc_ops, PEAK_BF16_TC_FLOPS),
+             lambda: torch.relu(torch.addmm(inp, library_agg(), wh))),
             ("band_matmul",
              lambda: bm.band_matmul_forward(m, wh, ws, rp, "high"),
              lambda: bm.band_matmul_plain(m, wh, ws, rp, "high"),
-             lambda: torch.mm(library_agg(), wh), f_bytes, tc_ops,
-             PEAK_BF16_TC_FLOPS)):
+             lambda: torch.mm(library_agg(), wh))):
+        nbytes, ops, peak = work(name, *shape)
         time_against(results[name], name, kern, plain, lib, nbytes, ops,
                      flush, f"B={B} A={A} H={H}", peak)
+    r = results["band_agg"]
+    r["gbps"] = gbps(work("band_agg", *shape)[0], r["ms"])
+    log(f"[time] band_agg at B={B} A={A} H={H}: {r['gbps']:.1f} GB/s, "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bytes bound")
     # rows 4 and 7 at "highest" (the FP32 stage) beside "high", with z
     # written and not, and the yardstick with TF32 on
     from polymer_chemprop_tpu_torch.ops.band_mpnn import (
@@ -850,12 +916,11 @@ def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
         "band_matmul_act": (
             lambda p, z: bm.band_matmul_act_forward(m, inp, wh, ws, rp,
                                                     "relu", z, p),
-            lambda: torch.relu(torch.addmm(inp, library_agg(), wh)),
-            act_ops),
+            lambda: torch.relu(torch.addmm(inp, library_agg(), wh))),
         "band_matmul": (
             lambda p, z: bm.band_matmul_forward(m, wh, ws, rp, p),
-            lambda: torch.mm(library_agg(), wh), mm_ops)}
-    for name, (fn, lib, ops) in fused.items():
+            lambda: torch.mm(library_agg(), wh))}
+    for name, (fn, lib) in fused.items():
         r = results[name]
         for key, p in (("ms_highest", "highest"), ("ms_default", "default")):
             r[key] = timed_ms(f"{name} kernel {p}",
@@ -868,7 +933,8 @@ def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
         with float32_matmul_precision("high"):
             r["library_tf32_ms"] = timed_ms(f"{name} library TF32", lib,
                                             flush)
-        r["bound_ms_highest"] = bound(f_bytes, ops)[0]
+        nbytes, ops, _ = work(name, *shape, 0, "highest")
+        r["bound_ms_highest"] = bound(nbytes, ops)[0]
         log(f"[time] {name} at B={B} H={H}: high {r['ms']:.4f} ms (bound "
             f"{r['bound_ms']:.4f}, {r['bound_by']}), default "
             f"{r['ms_default']:.4f} ms, highest "
@@ -880,28 +946,28 @@ def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
             f"{r['library_tf32_ms']:.4f}")
     wide = 1600
     mw = normal(B, wide)
-    for name, fn in (("band_agg", bm.band_agg), ("band_bwd", bm.band_bwd)):
+    for name, fn in (("atom_readout", bm.atom_readout),
+                     ("band_agg", bm.band_agg), ("band_bwd", bm.band_bwd)):
         r = results[name]
         r["ms_h1600"] = timed_ms(f"{name} kernel H={wide}",
                                  lambda: fn(mw, ws, rp), flush)
-        r["bound_ms_h1600"] = bound(4 * (2 * B * wide + B + (A + 1)), 0)[0]
+        nbytes = work(name, B, A, wide, n_real)[0]
+        r["bound_ms_h1600"] = bound(nbytes, 0)[0]
+        r["gbps_h1600"] = gbps(nbytes, r["ms_h1600"])
         log(f"[time] {name} at B={B} H={wide}: kernel_ms "
-            f"{r['ms_h1600']:.4f} bound_ms {r['bound_ms_h1600']:.4f} (bytes)")
+            f"{r['ms_h1600']:.4f} bound_ms {r['bound_ms_h1600']:.4f} (bytes), "
+            f"{r['gbps_h1600']:.1f} GB/s")
 
 
 def train_batch_timings(bm, results, flush, dev):
     """All seven kernels once more at the shape a training step gives them
-    (the three W_h-fused ones at "high" and "highest"): the first batch of
-    50 molecules of regression.csv as the trainer's loader pads it."""
-    from polymer_chemprop_tpu_torch.data import MoleculeDataLoader, get_data
-    from polymer_chemprop_tpu_torch.features import FeaturizationConfig
-    from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
-    fcfg = FeaturizationConfig()
-    data = get_data(os.path.join(ROOT, "tests", "data", "regression.csv"),
-                    config=fcfg, max_data_size=400)
-    loader = MoleculeDataLoader(data, fcfg, batch_size=BATCH_SIZE,
-                                shuffle=True, seed=SEED, num_workers=1)
-    graph = batch_to_tensors(next(iter(loader)).graph_arrays[0], dev)
+    (the three W_h-fused ones at "high" and "highest"), each with its bound
+    from this batch: the first batch of 50 molecules of regression.csv as
+    the trainer's loader pads it."""
+    from polymer_chemprop_tpu_torch.probes.csr_rows_probe import (
+        training_graph,
+    )
+    graph = training_graph(dev)
     aux = graph["sorted_aux"]
     B, A, H = graph["f_bonds"].shape[0], graph["f_atoms"].shape[0], HIDDEN
     gen = torch.Generator(dev).manual_seed(SEED)
@@ -910,6 +976,10 @@ def train_batch_timings(bm, results, flush, dev):
     wh = torch.randn((H, H), device=dev, generator=gen) * (1.0 / H) ** 0.5
     ws, src, srev, rp = (aux["w_sorted"], aux["src_sorted"], aux["srev"],
                          aux["rowptr"])
+    n_real = int(rp[-1])
+    src_l = src.long()
+    run_len = int((rp[src_l + 1] - rp[src_l]).sum())
+    shape = (B, A, H, n_real, run_len)
     for name, key, fn in (
             ("band_rev_layer", "ms_train_batch",
              lambda: bm.band_rev_layer(m, inp, wh, ws, src, srev, rp, "relu",
@@ -932,9 +1002,18 @@ def train_batch_timings(bm, results, flush, dev):
              lambda: bm.band_matmul_forward(m, wh, ws, rp))):
         r = results[name]
         kernel_ms(r, f"{name} at B={B}", fn, flush, key=key)
-        log(f"[time] {name} at the training batch's shape B={B} A={A} "
-            f"H={H} ({key}): kernel_ms {r[key]:.4f} (from an idle stream "
-            f"{r[key + '_idle_start']:.4f})")
+        precision = "highest" if key.endswith("highest") else "high"
+        nbytes, ops, peak = work(name, *shape, precision)
+        bound_key = "bound_" + key
+        r[bound_key] = bound(nbytes, ops, peak)[0]
+        line = (f"[time] {name} at the training batch's shape B={B} A={A} "
+                f"H={H} ({key}): kernel_ms {r[key]:.4f} (from an idle "
+                f"stream {r[key + '_idle_start']:.4f}) bound_ms "
+                f"{r[bound_key]:.4f}")
+        if name in CSR_KERNELS:
+            r["gbps_train_batch"] = gbps(nbytes, r[key])
+            line += f", {r['gbps_train_batch']:.1f} GB/s"
+        log(line)
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -1658,7 +1737,9 @@ def main() -> int:
             "max_rel_err_fp64", "ms_jax_shape", "library_ms_jax_shape",
             "ms_highest", "ms_default", "bound_ms_highest",
             "ms_with_z_highest",
-            "ms_train_batch_highest", "tc_launches")
+            "ms_train_batch_highest", "tc_launches", "bound_ms_train_batch",
+            "bound_ms_train_batch_highest", "gbps", "gbps_train_batch",
+            "gbps_h1600", "copy_ms", "launch_ms")
             if k in r})
         kernels.append(entry)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "

@@ -8,11 +8,12 @@
 // stays outside the kernel, as in the JAX package (permute_rows).
 //
 // With run(v) = [rowptr[v], rowptr[v + 1]) (rowptr from ops/sorted_aux.py):
-//   A[v,:] = sum_{c in run(v)} w[c] m[c,:]
+//   A[v,:] = sum_{c in run(v)} w[c] m[c,:]      fmaf from 0 in CSR order
 //   z[c,:] = A[v,:] - m[c,:]                    for every c in run(v)
 // Padding rows (c >= rowptr[A]) belong to no run and have weight 0:
 //   z[c,:] = -m[c,:]
-// which is what the TPU kernel gives them.
+// which is what the TPU kernel gives them. The order of the sum is the one
+// of band_matmul.cu's z build, so z equals that kernel's z bit for bit.
 //
 // What bounds it on an H100: memory. m is read once and z written once
 // (2*B*H*4 bytes, 67 MB at B = 28,032, H = 300) for about 2 operations per
@@ -21,68 +22,98 @@
 // MXU; on Hopper every row of a run shares one sum, so the run is read
 // through the CSR once with no window and no atomics.
 //
-// Design (simple and right first): one warp per atom v, lanes over the H
-// columns. The warp reads the rows of its run (each a coalesced row read),
-// keeps A[v] in registers, and writes z[c] for every c of the run; the
-// second read of each row comes from cache. Every real row lies in exactly
-// one run, so each z row is written once and the summation order is fixed.
-// A tail of the grid, a fixed number of blocks striding over the padding
-// rows, writes z = -m there without the host having to know how many there
-// are. Any H works: the lanes loop over the columns.
+// Design (csr_rows.cuh): one thread per (atom, 16-byte column chunk) over
+// a flattened index. The run's rows are loaded csr_rows::UNROLL at a time
+// before the first fmaf and, for runs that fit one group, stay in
+// registers until z = A - m is written from them: m is read once. Longer
+// runs read their rows a second time for z. The padding rows are folded into the same
+// grid without the host knowing how many there are: item (v, k) also
+// writes z = -m for rows rowptr[A] + v, rowptr[A] + v + A, ... below B,
+// loaded together with its run. Every row is written by exactly one
+// thread. Rows that are not 16-byte aligned, or H % 4 != 0, take one
+// column a thread.
 #include <cuda_runtime.h>
+
+#include "csr_rows.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TAIL_BLOCKS = 32;      // blocks striding over padding rows
-
-__global__ void __launch_bounds__(THREADS)
+template <int VEC>
+__global__ void __launch_bounds__(csr_rows::THREADS)
 band_agg_kernel(const float* __restrict__ m,
                 const float* __restrict__ w,
                 const int* __restrict__ rowptr,
-                float* __restrict__ z,
-                int A, int B, int H, int atom_blocks) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (static_cast<int>(blockIdx.x) < atom_blocks) {
-    const int v = blockIdx.x * WARPS + warp;
-    if (v >= A) return;
-    const int c0 = rowptr[v];
-    const int c1 = rowptr[v + 1];
-    for (int j = lane; j < H; j += 32) {
-      float acc = 0.f;
-      for (int c = c0; c < c1; ++c)
-        acc = fmaf(w[c], m[static_cast<size_t>(c) * H + j], acc);
-      for (int c = c0; c < c1; ++c) {
-        const size_t o = static_cast<size_t>(c) * H + j;
-        z[o] = acc - m[o];
+                float* __restrict__ z, int A, int B, int H) {
+  csr_rows::for_item(A, H / VEC, [&](int v, int k) {
+    const int c0 = __ldg(rowptr + v);
+    const int c1 = __ldg(rowptr + v + 1);
+    const size_t col = static_cast<size_t>(k) * VEC;
+    // this item's first padding row, loaded with the run
+    size_t p = static_cast<size_t>(__ldg(rowptr + A)) + v;
+    float y[VEC];
+    if (p < static_cast<size_t>(B))
+      csr_rows::load<VEC>(m + p * H + col, y);
+    float acc[VEC], x[csr_rows::UNROLL][VEC];
+    csr_rows::run_sum<VEC>(m, w, H, col, c0, c1, acc, x);
+    if (c1 - c0 <= csr_rows::UNROLL) {   // the run is still in registers
+#pragma unroll
+      for (int r = 0; r < csr_rows::UNROLL; ++r)
+        if (c0 + r < c1) {
+          float o[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) o[e] = acc[e] - x[r][e];
+          csr_rows::store<VEC>(z + static_cast<size_t>(c0 + r) * H + col,
+                               o);
+        }
+    } else {
+      for (int base = c0; base < c1; base += csr_rows::UNROLL) {
+        csr_rows::load_group<VEC>(m, H, col, base, c1, x);
+#pragma unroll
+        for (int r = 0; r < csr_rows::UNROLL; ++r)
+          if (base + r < c1) {
+            float o[VEC];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) o[e] = acc[e] - x[r][e];
+            csr_rows::store<VEC>(
+                z + static_cast<size_t>(base + r) * H + col, o);
+          }
       }
     }
-    return;
-  }
-  // tail: padding rows [rowptr[A], B)
-  const int n_real = rowptr[A];
-  const int stride = (gridDim.x - atom_blocks) * WARPS;
-  for (int r = n_real + (blockIdx.x - atom_blocks) * WARPS + warp; r < B;
-       r += stride) {
-    const size_t o = static_cast<size_t>(r) * H;
-    for (int j = lane; j < H; j += 32) z[o + j] = -m[o + j];
-  }
+    for (; p < static_cast<size_t>(B); p += A) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) y[e] = -y[e];
+      csr_rows::store<VEC>(z + p * H + col, y);
+      if (p + A < static_cast<size_t>(B))
+        csr_rows::load<VEC>(m + (p + A) * H + col, y);
+    }
+  });
+}
+
+template <int VEC>
+int launch(const float* m, const float* w, const int* rowptr, float* z,
+           int A, int B, int H, cudaStream_t stream) {
+  const unsigned grid = csr_rows::blocks(A, H / VEC);
+  if (grid == 0) return static_cast<int>(cudaSuccess);
+  band_agg_kernel<VEC><<<grid, csr_rows::THREADS, 0, stream>>>(
+      m, w, rowptr, z, A, B, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches z = S m - m on `stream`; returns cudaGetLastError() as an int.
+// Launches z = S m - m on `stream`, 16 bytes a thread where H and the
+// pointers allow it; returns cudaGetLastError() as an int. The padding
+// rows are spread over the atoms' items, so A >= 1 (atom 0, the padding
+// slot, is always there).
 int band_agg_f32(const float* m, const float* w, const int* rowptr, float* z,
                  int A, int B, int H, void* stream) {
-  const int atom_blocks = (A + WARPS - 1) / WARPS;
-  band_agg_kernel<<<atom_blocks + TAIL_BLOCKS, THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      m, w, rowptr, z, A, B, H, atom_blocks);
-  return static_cast<int>(cudaGetLastError());
+  if (A < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return csr_rows::vec4_ok(H, m, z)
+             ? launch<4>(m, w, rowptr, z, A, B, H, s)
+             : launch<1>(m, w, rowptr, z, A, B, H, s);
 }
 
 }  // extern "C"

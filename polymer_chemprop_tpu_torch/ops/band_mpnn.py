@@ -41,6 +41,9 @@ is the FP32 aggregation at every precision, and the backward is FP32 at
 every precision. The bandwidth kernels (:func:`band_rev_bwd`,
 :func:`atom_readout`, :func:`band_agg`, :func:`band_bwd`) are FP32.
 
+:func:`atom_readout` and :func:`band_agg` read the runs through
+csrc/csr_rows.cuh, one thread per (atom, column chunk).
+
 ``run(v)`` is the CSR run ``[rowptr[v], rowptr[v + 1])`` of
 :mod:`.sorted_aux`. Padding rows lie in no run: the plain band forms give
 them ``z = -m`` and ``dm = -g``. A wrapper given CPU tensors computes the

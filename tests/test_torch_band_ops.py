@@ -51,6 +51,8 @@ POLYMERS = ["[*:1]CC[*:2].[*:3]CO[*:4]|0.5|0.5|<1-3:0.5:0.5<2-4:0.5:0.5~20",
             "<1-3:0.25:0.75<2-4:0.75:0.25~100",
             "[*:1]CC[*:2].[*:3]c1ccc([*:4])cc1C|0.75|0.25|"
             "<1-3:0.5:0.5<2-4:0.5:0.5~7"]
+# high-degree atoms: runs of up to 6 incoming bonds (S in SF6)
+HUBS = ["FS(F)(F)(F)(F)F", "CC(C)(C)C", "OP(=O)(O)O"] * 4
 KINDS = ["molecules", "polymer"]
 
 
@@ -67,13 +69,14 @@ class Case:
 
     def __init__(self, kind, seed=0):
         polymer = kind == "polymer"
-        gb = mol2graph(POLYMERS if polymer else SMILES,
-                       FeaturizationConfig(polymer=polymer),
-                       pad_atoms=256, pad_bonds=512, pad_mols=8)
+        smiles = {"molecules": SMILES, "polymer": POLYMERS, "hubs": HUBS}
+        gb = mol2graph(smiles[kind], FeaturizationConfig(polymer=polymer),
+                       pad_atoms=256, pad_bonds=512,
+                       pad_mols=max(8, len(smiles[kind])))
         w = gb.w_bonds
         rng = np.random.default_rng(seed)
-        if polymer:
-            # untidy (non-bf16-exact) weights on top of the polymer weights
+        if kind != "molecules":
+            # untidy (non-bf16-exact) weights on top of the featurized ones
             w = np.where(w > 0, w * rng.uniform(0.3, 1.0, w.shape), 0.0
                          ).astype(np.float32)
         self.gb, self.w = gb, w
@@ -105,7 +108,7 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
                                atol=atol)
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ["hubs"])
 def test_band_agg_plain_matches_jax_kernel(interpret_mode, kind):
     c = Case(kind)
     want = np.asarray(jpm._band_apply(_pad(c.m), c.j["w_sorted"],

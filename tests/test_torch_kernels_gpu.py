@@ -98,7 +98,7 @@ def test_band_rev_layer_matches_plain(cuda, kind, act, H, precision):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["molecules", "polymer"])
-@pytest.mark.parametrize("H", [32, 300, 333])
+@pytest.mark.parametrize("H", [32, 37, 300, 333, 1600])
 def test_atom_readout_matches_plain(cuda, kind, H):
     m, _, _, a, _ = _batch(kind, H, cuda)
     got = band_mpnn.atom_readout(m, a["w_sorted"], a["rowptr"])
@@ -221,7 +221,7 @@ def _plain_band_operands(kind, H, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["molecules", "polymer"])
-@pytest.mark.parametrize("H", [32, 300, 333, 1600])
+@pytest.mark.parametrize("H", [32, 37, 300, 333, 1600])
 def test_band_agg_matches_plain(cuda, kind, H):
     m, _, _, _, a, n_real = _plain_band_operands(kind, H, cuda)
     before = band_mpnn.band_agg.launches
@@ -387,6 +387,83 @@ def test_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="shape"):
         band_mpnn.band_matmul_act(m, inp[:-1], wh, a["w_sorted"],
                                   a["rowptr"], "relu")
+
+
+# -- the CSR-row kernels (atom_readout, band_agg) -----------------------------
+
+
+def _long_runs(H, dev):
+    """A synthetic CSR: atom 0 empty, then runs of every length 0..40 in a
+    shuffled order (820 real rows), 37 padding rows, fractional weights; m
+    not zero on padding rows."""
+    rng = np.random.default_rng(4)
+    counts = np.concatenate([[0], rng.permutation(41)])
+    rowptr = np.zeros(counts.shape[0] + 1, np.int32)
+    np.cumsum(counts, out=rowptr[1:])
+    n_real = int(rowptr[-1])
+    B = n_real + 37
+    w = np.zeros(B, np.float32)
+    w[:n_real] = rng.uniform(0.05, 1.0, n_real)
+    m = rng.normal(size=(B, H)).astype(np.float32)
+    T = lambda x: torch.as_tensor(x, device=dev)
+    return T(m), T(w), T(rowptr), n_real
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [4, 37, 300, 333])
+def test_csr_kernels_on_runs_up_to_40(cuda, H):
+    """Both kernels against their plain versions on runs of 0 to 40 rows
+    (the unrolled groups and the loop over them; one float a thread at
+    H = 37 and 333), atom 0 exactly 0, padding rows of z exactly -m."""
+    m, w, rp, n_real = _long_runs(H, cuda)
+    a = band_mpnn.atom_readout(m, w, rp)
+    z = band_mpnn.band_agg(m, w, rp)
+    _close(a, band_mpnn.atom_readout_plain(m, w, rp))
+    _close(z, band_mpnn.band_agg_plain(m, w, rp))
+    assert (a[0] == 0).all()
+    assert torch.equal(z[n_real:], -m[n_real:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [32, 300, 333, 1495])
+def test_csr_kernels_equal_the_fp32_stage_z_bit_for_bit(cuda, kind, H):
+    """band_agg's z is band_matmul's FP32 z, and atom_readout composed with
+    a[src] - m[srev] is band_rev_layer's FP32 z on real rows: the same
+    fmaf chain in CSR order."""
+    m, inp, _, wh, a, n_real = _plain_band_operands(kind, H, cuda)
+    ws, rp = a["w_sorted"], a["rowptr"]
+    z = band_mpnn.band_agg(m, ws, rp)
+    z_f32 = band_mpnn.band_matmul_forward(m, wh, ws, rp, "highest")[1]
+    torch.cuda.synchronize()
+    assert torch.equal(z, z_f32)
+    idx = (ws, a["src_sorted"], a["srev"], rp)
+    z_rev = band_mpnn.band_rev_layer_forward(m, inp, wh, *idx, "relu", True,
+                                             "highest")[1]
+    atoms = band_mpnn.atom_readout(m, ws, rp)
+    got = atoms[a["src_sorted"].long()] - m[a["srev"].long()]
+    torch.cuda.synchronize()
+    assert torch.equal(got[:n_real], z_rev[:n_real])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["atom_readout", "band_agg"])
+def test_csr_kernels_take_one_float_a_thread_on_misaligned_rows(cuda,
+                                                                kernel):
+    """m as a view 4 bytes past a 16-byte boundary: the C entry takes the
+    one-float path (the 16-byte one would fault on it) and gives the
+    aligned result bit for bit."""
+    m, _, _, _, a, _ = _plain_band_operands("polymer", 300, cuda)
+    ws, rp = a["w_sorted"], a["rowptr"]
+    flat = torch.empty(m.numel() + 1, device=cuda)
+    view = flat[1:].view(m.shape)
+    view.copy_(m)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    fn = getattr(band_mpnn, kernel)
+    plain = getattr(band_mpnn, f"{kernel}_plain")
+    got = fn(view, ws, rp)
+    _close(got, plain(m, ws, rp))
+    assert torch.equal(got, fn(m, ws, rp))
 
 
 # -- the tensor-core stage of band_matmul_act / band_matmul -------------------

@@ -50,6 +50,8 @@ POLYMERS = ["[*:1]CC[*:2].[*:3]CO[*:4]|0.5|0.5|<1-3:0.5:0.5<2-4:0.5:0.5~20",
             "<1-3:0.25:0.75<2-4:0.75:0.25~100",
             "[*:1]CC[*:2].[*:3]c1ccc([*:4])cc1C|0.75|0.25|"
             "<1-3:0.5:0.5<2-4:0.5:0.5~7"]
+# high-degree atoms: runs of up to 6 incoming bonds (S in SF6)
+HUBS = ["FS(F)(F)(F)(F)F", "CC(C)(C)C", "OP(=O)(O)O"] * 4
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +67,8 @@ def _graphs(kind, pad_atoms=256, pad_bonds=512):
         smi, fc, jfc = POLYMERS, FeaturizationConfig(polymer=True), \
             JaxFcfg(polymer=True)
     else:
-        smi, fc, jfc = SMILES, FeaturizationConfig(), JaxFcfg()
+        smi = HUBS if kind == "hubs" else SMILES
+        fc, jfc = FeaturizationConfig(), JaxFcfg()
     kw = dict(pad_atoms=pad_atoms, pad_bonds=pad_bonds, pad_mols=len(smi))
     return mol2graph(smi, fc, **kw), jax_mol2graph(smi, jfc, **kw)
 
@@ -154,7 +157,7 @@ def test_band_rev_layer_plain_matches_jax_kernel(interpret_mode, kind, act):
     assert (got[gb.n_bonds_real - 1:] == 0).all()
 
 
-@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("kind", ["molecules", "polymer", "hubs"])
 def test_atom_readout_plain_matches_jax_kernel(interpret_mode, kind):
     # the JAX readout kernel needs >= EXT_A (1024) bonds and a TILE_A (256)
     # multiple of atoms; below that it takes its segment-sum fallback

@@ -34,6 +34,7 @@ from polymer_chemprop_tpu_torch.features import mol2graph
 from polymer_chemprop_tpu_torch.ops import probe_kernels as pk
 from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
 from polymer_chemprop_tpu_torch.probes import (band_layer_probe,
+                                               csr_rows_probe,
                                                fused_matmul_probe)
 from polymer_chemprop_tpu_torch.probes.bench_batch import bench_smiles
 
@@ -229,3 +230,23 @@ def test_probe_with_device_cuda_raises_without_a_card(probe):
         pytest.skip("a GPU is present: the CUDA default is valid here")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         probe.main(["--molecules", "4"])
+
+
+def test_csr_rows_probe_runs_on_cpu():
+    """The CSR-row probe's entry point on the CPU (plain versions, host
+    clock): three shapes, their run-length histograms, the bytes each
+    kernel must move, no rate off the card."""
+    out = csr_rows_probe.main(["--device", "cpu", "--molecules", "16",
+                               "--wide", "40", "--reps", "2"])
+    assert set(out) == {"bench", "train", "wide"}
+    assert (out["train"]["B"], out["train"]["A"]) == (1792, 768)
+    for shape, row in out.items():
+        hist = np.asarray(row["hist"])
+        assert hist.sum() == row["A"]
+        assert (np.arange(hist.shape[0]) * hist).sum() == row["n_real"]
+        assert row["H"] == (40 if shape == "wide" else 300)
+        for kernel in csr_rows_probe.KERNELS:
+            r = row[kernel]
+            assert r["ms"] > 0 and "gbps" not in r
+            assert r["bytes"] == csr_rows_probe.kernel_bytes(
+                kernel, row["B"], row["A"], row["H"], row["n_real"])
