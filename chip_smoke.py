@@ -35,7 +35,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    CSR-row kernels must equal the FP32 stage bit for bit (the same
    ``fmaf`` chain in CSR order): ``band_agg``'s z is ``band_matmul``'s
    FP32 z, ``atom_readout`` composed with ``a[src] - m[srev]`` is the FP32
-   ``band_rev_layer``'s z on real rows, and atom 0 reads exactly 0.
+   ``band_rev_layer``'s z on real rows, and atom 0 reads exactly 0; with
+   unit weights the two VJP kernels must equal the readout bit for bit:
+   ``band_bwd(g)`` is ``atom_readout(g)[dst] - g`` and ``band_rev_bwd(g)``
+   is ``atom_readout(g[srev])[dst] - g[srev]`` on real rows.
    ``band_matmul_act`` and ``band_matmul`` also run on their tensor-core
    stage (``band_precision`` "high" and "default") at hidden 300, 37 and
    1,495, held against their plain versions at the same precision: the
@@ -54,9 +57,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    without TF32; ``band_rev_layer`` likewise (its ``ms`` at "high"); the
    three once more at "default". All
    seven kernels are timed once more at the training batch's own shape
-   (batch 50), each beside its bound from that batch. For
-   ``atom_readout`` and ``band_agg``: the achieved GB/s at the three
-   shapes (bench, training batch, hidden 1,600), and the CSR-row probe
+   (batch 50), each beside its bound from that batch. For the four
+   CSR-row kernels (``atom_readout``, ``band_agg``, ``band_bwd``,
+   ``band_rev_bwd``): the achieved GB/s at the three shapes (bench,
+   training batch, hidden 1,600; ``band_rev_bwd`` not at 1,600, where its
+   layer form never runs), and the CSR-row probe
    (``probes/csr_rows_probe.py``) in-process: the run-length histograms of
    the bench and training batches, and a copy of the same bytes and a
    one-float launch as yardsticks.
@@ -158,7 +163,8 @@ PLAIN_BAND_EPOCHS = 3
 WIDE_HIDDEN, WIDE_MOLECULES = 1600, 100
 HIGHEST_MOLECULES = 100   # serving at band_precision "highest"
 REV_KERNELS = ("band_rev_layer", "band_rev_bwd")
-CSR_KERNELS = ("atom_readout", "band_agg")     # csrc/csr_rows.cuh
+CSR_KERNELS = ("atom_readout", "band_agg", "band_bwd",   # csrc/csr_rows.cuh
+               "band_rev_bwd")
 PLAIN_BAND_KERNELS = ("band_agg", "band_bwd", "band_matmul_act",
                       "band_matmul")
 PROBE_REPS = 10
@@ -254,7 +260,7 @@ def work(name: str, B: int, A: int, H: int, n_real: int, run_len: int = 0,
     batch's runs need (``run_len``: the rev layer's summed run lengths of
     src(t)); the peak for their type. The W_h-fused rows at "high" count
     three bf16 passes on the tensor cores, at "highest" the FP32
-    product. Rows 3 and 6 take their bytes from the CSR-row probe's
+    product. Rows 2, 3, 5 and 6 take their bytes from the CSR-row probe's
     ``kernel_bytes``."""
     csr = B + (A + 1)                      # w and rowptr
     if name in ("band_rev_layer", "band_matmul_act", "band_matmul"):
@@ -267,21 +273,29 @@ def work(name: str, B: int, A: int, H: int, n_real: int, run_len: int = 0,
                "band_matmul_act": 2 * n_real * H + 2 * B * H,
                "band_matmul": 2 * n_real * H + B * H}[name]
         return nbytes, 2 * B * H * H + agg, PEAK_FP32_FLOPS
+    from polymer_chemprop_tpu_torch.probes.csr_rows_probe import (
+        kernel_bytes,
+    )
     if name in ("atom_readout", "band_agg"):
-        from polymer_chemprop_tpu_torch.probes.csr_rows_probe import (
-            kernel_bytes,
-        )
         # one fma per run element, and one subtraction per element of z
         ops = 2 * n_real * H + (B * H if name == "band_agg" else 0)
-        return kernel_bytes(name, B, A, H, n_real), ops, PEAK_FP32_FLOPS
-    # (B, H) in, (B, H) out; band_rev_bwd also reads srev. One add per run
-    # element, one fma per real and one negation per padding element
-    nbytes = 4 * (2 * B * H + csr + (B if name == "band_rev_bwd" else 0))
-    return nbytes, 3 * n_real * H + (B - n_real) * H, PEAK_FP32_FLOPS
+    else:
+        # band_bwd, band_rev_bwd: one add per run element, one fma per
+        # real and one negation per padding element
+        ops = 3 * n_real * H + (B - n_real) * H
+    return kernel_bytes(name, B, A, H, n_real), ops, PEAK_FP32_FLOPS
 
 
 def gbps(nbytes: float, ms: float) -> float:
     return nbytes / ms * 1e-6
+
+
+def csr_gbps(r: dict, name: str, shape) -> None:
+    """A CSR-row kernel's achieved GB/s at the bench shape into ``r``."""
+    r["gbps"] = gbps(work(name, *shape)[0], r["ms"])
+    log(f"[time] {name} at B={shape[0]} A={shape[1]} H={shape[2]}: "
+        f"{r['gbps']:.1f} GB/s, {100 * r['bound_ms'] / r['ms']:.1f}% of the "
+        "bytes bound")
 
 
 def time_against(r, name, kern, plain, lib, nbytes, ops, flush, shape,
@@ -296,6 +310,25 @@ def time_against(r, name, kern, plain, lib, nbytes, ops, flush, shape,
         f"stream {r['ms_idle_start']:.4f}) plain_ms {r['plain_ms']:.4f} "
         f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
         f"({r['bound_by']}: {nbytes} bytes, {ops} operations)")
+
+
+def unit_weight_vjps(bm, g, ws, srev, rp, dst, n_real):
+    """With unit weights both VJP kernels are the atom readout of g (or of
+    g[srev]) less the row, bit for bit on real rows: the same sum from 0
+    in CSR order, and fmaf(1, G, -x) is G - x."""
+    ones = torch.ones_like(ws)
+    g_rev = g[srev.long()]
+    d = dst[:n_real]
+    for name, got, want in (
+            ("band_bwd", bm.band_bwd(g, ones, rp),
+             bm.atom_readout(g, ones, rp)[d] - g[:n_real]),
+            ("band_rev_bwd", bm.band_rev_bwd(g, ones, srev, rp),
+             bm.atom_readout(g_rev, ones, rp)[d] - g_rev[:n_real])):
+        torch.cuda.synchronize()
+        check(torch.equal(got[:n_real], want),
+              f"{name} with unit weights is not the readout less the row")
+        log(f"[kernel] {name} with unit weights equals the readout less the "
+            f"row bit for bit on {n_real} real rows")
 
 
 def kernel_phase(dev, gb):
@@ -363,6 +396,8 @@ def kernel_phase(dev, gb):
         results.setdefault("band_rev_bwd", {"max_abs_err": 0.0})
         r = results["band_rev_bwd"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        if weights == "unit":
+            unit_weight_vjps(bm, g, ws, srev, rp, dst, n_real)
 
         # the forward kernel's z output (written only in training)
         _, z = bm.band_rev_layer_forward(m, inp, wh, ws, src, srev, rp,
@@ -471,10 +506,8 @@ def kernel_phase(dev, gb):
             nbytes, ops, peak = work(name, *shape)
             time_against(results[name], name, kern, plain, lib, nbytes, ops,
                          flush, f"B={B} A={A} H={H}", peak)
-        r = results["atom_readout"]
-        r["gbps"] = gbps(work("atom_readout", *shape)[0], r["ms"])
-        log(f"[time] atom_readout at B={B} A={A} H={H}: {r['gbps']:.1f} "
-            f"GB/s, {100 * r['bound_ms'] / r['ms']:.1f}% of the bytes bound")
+        for name in ("atom_readout", "band_rev_bwd"):
+            csr_gbps(results[name], name, shape)
         # row 1 at "highest" (the FP32 entry) beside "high", with z written
         # and not, and the yardstick with TF32 on
         from polymer_chemprop_tpu_torch.ops.band_mpnn import (
@@ -509,16 +542,19 @@ def kernel_phase(dev, gb):
 
 
 def csr_probe(results, gb):
-    """The CSR-row probe in-process on the bench batch: both kernels'
-    run-length histograms (printed by the probe), GB/s, and a copy of the
-    same bytes and a one-float launch as yardsticks, at the bench shape,
-    the training batch's shape and hidden 1,600."""
+    """The CSR-row probe in-process on the bench batch: the run-length
+    histograms (printed by the probe), the four kernels' GB/s and output
+    hashes, and a copy of the same bytes and a one-float launch as
+    yardsticks, at the bench shape, the training batch's shape and hidden
+    1,600 (there without band_rev_bwd)."""
     from polymer_chemprop_tpu_torch.probes import csr_rows_probe
     out = csr_rows_probe.main(["--hidden", str(HIDDEN), "--wide", "1600"],
                               batch=gb)
     for shape, row in out.items():
         log(f"[csr] {shape}: longest run {len(row['hist']) - 1} rows")
         for name in CSR_KERNELS:
+            if name not in row:     # band_rev_bwd is not run at hidden 1,600
+                continue
             r = results[name]
             r.setdefault("copy_ms", {})[shape] = row[name]["copy"]["ms"]
             r.setdefault("launch_ms", {})[shape] = row[name]["launch"]["ms"]
@@ -903,10 +939,8 @@ def plain_band_timings(bm, results, flush, T, rng, aux, A, B, H):
         nbytes, ops, peak = work(name, *shape)
         time_against(results[name], name, kern, plain, lib, nbytes, ops,
                      flush, f"B={B} A={A} H={H}", peak)
-    r = results["band_agg"]
-    r["gbps"] = gbps(work("band_agg", *shape)[0], r["ms"])
-    log(f"[time] band_agg at B={B} A={A} H={H}: {r['gbps']:.1f} GB/s, "
-        f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bytes bound")
+    for name in ("band_agg", "band_bwd"):
+        csr_gbps(results[name], name, shape)
     # rows 4 and 7 at "highest" (the FP32 stage) beside "high", with z
     # written and not, and the yardstick with TF32 on
     from polymer_chemprop_tpu_torch.ops.band_mpnn import (

@@ -37,8 +37,8 @@ atom_readout_kernel(const float* __restrict__ m,
     const int c0 = __ldg(rowptr + v);
     const int c1 = __ldg(rowptr + v + 1);
     const size_t col = static_cast<size_t>(k) * VEC;
-    float acc[VEC], x[csr_rows::UNROLL][VEC];
-    csr_rows::run_sum<VEC>(m, w, H, col, c0, c1, acc, x);
+    float acc[VEC], x[csr_rows::UNROLL][VEC], wc[csr_rows::UNROLL];
+    csr_rows::run_sum<VEC>(m, w, H, col, c0, c1, acc, x, wc);
     csr_rows::store<VEC>(out + static_cast<size_t>(v) * H + col, acc);
   });
 }

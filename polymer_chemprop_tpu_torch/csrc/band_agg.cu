@@ -48,44 +48,12 @@ band_agg_kernel(const float* __restrict__ m,
     const int c0 = __ldg(rowptr + v);
     const int c1 = __ldg(rowptr + v + 1);
     const size_t col = static_cast<size_t>(k) * VEC;
-    // this item's first padding row, loaded with the run
-    size_t p = static_cast<size_t>(__ldg(rowptr + A)) + v;
-    float y[VEC];
-    if (p < static_cast<size_t>(B))
-      csr_rows::load<VEC>(m + p * H + col, y);
-    float acc[VEC], x[csr_rows::UNROLL][VEC];
-    csr_rows::run_sum<VEC>(m, w, H, col, c0, c1, acc, x);
-    if (c1 - c0 <= csr_rows::UNROLL) {   // the run is still in registers
-#pragma unroll
-      for (int r = 0; r < csr_rows::UNROLL; ++r)
-        if (c0 + r < c1) {
-          float o[VEC];
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) o[e] = acc[e] - x[r][e];
-          csr_rows::store<VEC>(z + static_cast<size_t>(c0 + r) * H + col,
-                               o);
-        }
-    } else {
-      for (int base = c0; base < c1; base += csr_rows::UNROLL) {
-        csr_rows::load_group<VEC>(m, H, col, base, c1, x);
-#pragma unroll
-        for (int r = 0; r < csr_rows::UNROLL; ++r)
-          if (base + r < c1) {
-            float o[VEC];
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) o[e] = acc[e] - x[r][e];
-            csr_rows::store<VEC>(
-                z + static_cast<size_t>(base + r) * H + col, o);
-          }
-      }
-    }
-    for (; p < static_cast<size_t>(B); p += A) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) y[e] = -y[e];
-      csr_rows::store<VEC>(z + p * H + col, y);
-      if (p + A < static_cast<size_t>(B))
-        csr_rows::load<VEC>(m + (p + A) * H + col, y);
-    }
+    float y[VEC];   // this item's first padding row, loaded with the run
+    const size_t p = csr_rows::pad_first<VEC>(m, rowptr, A, B, H, col, v, y);
+    float acc[VEC], x[csr_rows::UNROLL][VEC], wc[csr_rows::UNROLL];
+    csr_rows::run_sum<VEC>(m, w, H, col, c0, c1, acc, x, wc);
+    csr_rows::run_store<VEC>(m, w, z, H, col, c0, c1, acc, x, wc);
+    csr_rows::pad_store<VEC>(m, z, A, B, H, col, p, y);
   });
 }
 

@@ -22,65 +22,70 @@
 // and scaled the rows afterwards; on Hopper this is a segment sum over the
 // CSR with no window and no atomics.
 //
-// Design (simple and right first): one warp per atom v, lanes over the H
-// columns, as in band_agg.cu: read the run's rows, keep G[v] in registers,
-// write dm[c] for every c of the run (the second read of each row comes
-// from cache). Each dm row is written once and the summation order is
-// fixed. A tail of the grid strides over the padding rows and writes
-// dm = -g there. Any H works: the lanes loop over the columns.
+// Design (csr_rows.cuh, the weights kInStore): one thread per (atom,
+// 16-byte column chunk) over a flattened index. The run's rows and
+// weights are loaded csr_rows::UNROLL at a time before the first add and,
+// for runs that fit one group, stay in registers until dm = fmaf(w, G, -g)
+// is written from them: g is read once. Longer runs read their rows a
+// second time for dm. The padding rows are folded into the same grid
+// without the host knowing how many there are: item (v, k) also writes
+// dm = -g for rows rowptr[A] + v, rowptr[A] + v + A, ... below B, loaded
+// together with its run. Every row is written by exactly one thread. G is
+// summed from 0 in CSR order and scaled by one fmaf, so with unit weights
+// dm[c] is atom_readout.cu's G[v] - g[c] bit for bit. Rows that are not
+// 16-byte aligned, or H % 4 != 0, take one column a thread.
 #include <cuda_runtime.h>
+
+#include "csr_rows.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TAIL_BLOCKS = 32;      // blocks striding over padding rows
-
-__global__ void __launch_bounds__(THREADS)
+template <int VEC>
+__global__ void __launch_bounds__(csr_rows::THREADS)
 band_bwd_kernel(const float* __restrict__ g,
                 const float* __restrict__ w,
                 const int* __restrict__ rowptr,
-                float* __restrict__ dm,
-                int A, int B, int H, int atom_blocks) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (static_cast<int>(blockIdx.x) < atom_blocks) {
-    const int v = blockIdx.x * WARPS + warp;
-    if (v >= A) return;
-    const int c0 = rowptr[v];
-    const int c1 = rowptr[v + 1];
-    for (int j = lane; j < H; j += 32) {
-      float s = 0.f;
-      for (int c = c0; c < c1; ++c) s += g[static_cast<size_t>(c) * H + j];
-      for (int c = c0; c < c1; ++c) {
-        const size_t o = static_cast<size_t>(c) * H + j;
-        dm[o] = fmaf(w[c], s, -g[o]);
-      }
-    }
-    return;
-  }
-  // tail: padding rows [rowptr[A], B)
-  const int n_real = rowptr[A];
-  const int stride = (gridDim.x - atom_blocks) * WARPS;
-  for (int r = n_real + (blockIdx.x - atom_blocks) * WARPS + warp; r < B;
-       r += stride) {
-    const size_t o = static_cast<size_t>(r) * H;
-    for (int j = lane; j < H; j += 32) dm[o + j] = -g[o + j];
-  }
+                float* __restrict__ dm, int A, int B, int H) {
+  csr_rows::for_item(A, H / VEC, [&](int v, int k) {
+    const int c0 = __ldg(rowptr + v);
+    const int c1 = __ldg(rowptr + v + 1);
+    const size_t col = static_cast<size_t>(k) * VEC;
+    float y[VEC];   // this item's first padding row, loaded with the run
+    const size_t p = csr_rows::pad_first<VEC>(g, rowptr, A, B, H, col, v, y);
+    float acc[VEC], x[csr_rows::UNROLL][VEC], wc[csr_rows::UNROLL];
+    csr_rows::run_sum<VEC, csr_rows::kInStore>(g, w, H, col, c0, c1, acc, x,
+                                               wc);
+    csr_rows::run_store<VEC, csr_rows::kInStore>(g, w, dm, H, col, c0, c1,
+                                                 acc, x, wc);
+    csr_rows::pad_store<VEC>(g, dm, A, B, H, col, p, y);
+  });
+}
+
+template <int VEC>
+int launch(const float* g, const float* w, const int* rowptr, float* dm,
+           int A, int B, int H, cudaStream_t stream) {
+  const unsigned grid = csr_rows::blocks(A, H / VEC);
+  if (grid == 0) return static_cast<int>(cudaSuccess);
+  band_bwd_kernel<VEC><<<grid, csr_rows::THREADS, 0, stream>>>(
+      g, w, rowptr, dm, A, B, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches dm = S^T g - g on `stream`; returns cudaGetLastError() as an int.
+// Launches dm = S^T g - g on `stream`, 16 bytes a thread where H and the
+// pointers allow it; returns cudaGetLastError() as an int. The padding
+// rows are spread over the atoms' items, so A >= 1 (atom 0, the padding
+// slot, is always there).
 int band_bwd_f32(const float* g, const float* w, const int* rowptr, float* dm,
                  int A, int B, int H, void* stream) {
-  const int atom_blocks = (A + WARPS - 1) / WARPS;
-  band_bwd_kernel<<<atom_blocks + TAIL_BLOCKS, THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      g, w, rowptr, dm, A, B, H, atom_blocks);
-  return static_cast<int>(cudaGetLastError());
+  if (A < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return csr_rows::vec4_ok(H, g, dm)
+             ? launch<4>(g, w, rowptr, dm, A, B, H, s)
+             : launch<1>(g, w, rowptr, dm, A, B, H, s);
 }
 
 }  // extern "C"

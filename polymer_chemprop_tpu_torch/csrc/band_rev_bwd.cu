@@ -21,70 +21,79 @@
 // Hopper this is a gather-and-add over the CSR with no window and no
 // atomics.
 //
-// Design (simple and right first): one warp per atom a, lanes over the H
-// columns. The warp reads the rows g[srev c'] of its run (each a coalesced
-// row read), forms S[a] in registers, and writes dm[c'] for every c' of the
-// run; the row subtracted for c' is the one just added for it, so its
-// second read comes from cache. Every real row lies in exactly one run, so
-// each dm row is written once and the summation order is fixed. A tail of
-// the grid, a fixed number of blocks striding over the padding rows, writes
-// dm = -g[srev] there without the host having to know how many there are.
+// Design (csr_rows.cuh, the weights kInStore, rows through csr_rows::Gather
+// on srev): one thread per (atom, 16-byte column chunk) over a flattened
+// index. A group of csr_rows::UNROLL run elements loads its srev entries
+// (contiguous) and weights first, then all its rows g[srev c'] (each a
+// coalesced 16-byte-a-thread read within its row), before the first add:
+// three dependent round trips (rowptr, srev, the rows) where the forward
+// kernels make two. For runs that fit one group, the rows stay in
+// registers until dm[c'] = fmaf(w[c'], S, -g[srev c']) is written from
+// them: g is read once. Longer runs read srev and their rows a second
+// time. The padding rows are folded into the same grid: item (a, k) also
+// writes dm = -g[srev r] for rows r = rowptr[A] + a, + a + A, ... below B,
+// loaded together with its run. Every real row lies in exactly one run,
+// so each dm row is written by exactly one thread. S is summed from 0 in
+// CSR order and scaled by one fmaf, so with unit weights dm[c] is
+// atom_readout.cu's S[a] of g[srev] less g[srev c] bit for bit. Rows that
+// are not 16-byte aligned, or H % 4 != 0, take one column a thread.
 #include <cuda_runtime.h>
+
+#include "csr_rows.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TAIL_BLOCKS = 32;      // blocks striding over padding rows
-
-__global__ void __launch_bounds__(THREADS)
+template <int VEC>
+__global__ void __launch_bounds__(csr_rows::THREADS)
 band_rev_bwd_kernel(const float* __restrict__ g,
                     const float* __restrict__ w,
                     const int* __restrict__ srev,
                     const int* __restrict__ rowptr,
-                    float* __restrict__ dm,
-                    int A, int B, int H, int atom_blocks) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (static_cast<int>(blockIdx.x) < atom_blocks) {
-    const int a = blockIdx.x * WARPS + warp;
-    if (a >= A) return;
-    const int c0 = rowptr[a];
-    const int c1 = rowptr[a + 1];
-    for (int j = lane; j < H; j += 32) {
-      float s = 0.f;
-      for (int c = c0; c < c1; ++c)
-        s += g[static_cast<size_t>(srev[c]) * H + j];
-      for (int c = c0; c < c1; ++c)
-        dm[static_cast<size_t>(c) * H + j] =
-            fmaf(w[c], s, -g[static_cast<size_t>(srev[c]) * H + j]);
-    }
-    return;
-  }
-  // tail: padding rows [rowptr[A], B)
-  const int n_real = rowptr[A];
-  const int stride = (gridDim.x - atom_blocks) * WARPS;
-  for (int r = n_real + (blockIdx.x - atom_blocks) * WARPS + warp; r < B;
-       r += stride) {
-    const size_t rv = static_cast<size_t>(srev[r]) * H;
-    for (int j = lane; j < H; j += 32)
-      dm[static_cast<size_t>(r) * H + j] = -g[rv + j];
-  }
+                    float* __restrict__ dm, int A, int B, int H) {
+  const csr_rows::Gather rev{srev};
+  csr_rows::for_item(A, H / VEC, [&](int a, int k) {
+    const int c0 = __ldg(rowptr + a);
+    const int c1 = __ldg(rowptr + a + 1);
+    const size_t col = static_cast<size_t>(k) * VEC;
+    float y[VEC];   // this item's first padding row, loaded with the run
+    const size_t p =
+        csr_rows::pad_first<VEC>(g, rowptr, A, B, H, col, a, y, rev);
+    float acc[VEC], x[csr_rows::UNROLL][VEC], wc[csr_rows::UNROLL];
+    csr_rows::run_sum<VEC, csr_rows::kInStore>(g, w, H, col, c0, c1, acc, x,
+                                               wc, rev);
+    csr_rows::run_store<VEC, csr_rows::kInStore>(g, w, dm, H, col, c0, c1,
+                                                 acc, x, wc, rev);
+    csr_rows::pad_store<VEC>(g, dm, A, B, H, col, p, y, rev);
+  });
+}
+
+template <int VEC>
+int launch(const float* g, const float* w, const int* srev,
+           const int* rowptr, float* dm, int A, int B, int H,
+           cudaStream_t stream) {
+  const unsigned grid = csr_rows::blocks(A, H / VEC);
+  if (grid == 0) return static_cast<int>(cudaSuccess);
+  band_rev_bwd_kernel<VEC><<<grid, csr_rows::THREADS, 0, stream>>>(
+      g, w, srev, rowptr, dm, A, B, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches dm = M^T g on `stream`; returns cudaGetLastError() as an int.
+// Launches dm = M^T g on `stream`, 16 bytes a thread where H and the
+// pointers allow it; returns cudaGetLastError() as an int. The padding
+// rows are spread over the atoms' items, so A >= 1 (atom 0, the padding
+// slot, is always there).
 int band_rev_bwd_f32(const float* g, const float* w, const int* srev,
                      const int* rowptr, float* dm, int A, int B, int H,
                      void* stream) {
-  const int atom_blocks = (A + WARPS - 1) / WARPS;
-  band_rev_bwd_kernel<<<atom_blocks + TAIL_BLOCKS, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      g, w, srev, rowptr, dm, A, B, H, atom_blocks);
-  return static_cast<int>(cudaGetLastError());
+  if (A < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return csr_rows::vec4_ok(H, g, dm)
+             ? launch<4>(g, w, srev, rowptr, dm, A, B, H, s)
+             : launch<1>(g, w, srev, rowptr, dm, A, B, H, s);
 }
 
 }  // extern "C"

@@ -1,14 +1,25 @@
 // Reading CSR runs of rows over dst-sorted bonds at the H100's memory rate:
-// the shared part of atom_readout.cu and band_agg.cu.
+// the shared part of atom_readout.cu, band_agg.cu, band_bwd.cu and
+// band_rev_bwd.cu.
 //
-// Both kernels sum, for an atom v and a slice of VEC columns, the rows of
-// its run [rowptr[v], rowptr[v + 1]) weighted by w:
+// Each kernel sums, for an atom v and a slice of VEC columns, the rows of
+// its run [rowptr[v], rowptr[v + 1]), and three of them then write one
+// output row for every row of the run. Where the weights w act is the
+// Weights switch:
 //
-//   acc = 0; for c in run(v): acc = fmaf(w[c], m[c, j], acc)
+//   kInSum (the forward kernels, atom_readout.cu, band_agg.cu):
+//     acc = 0; for c in run(v): acc = fmaf(w[c], x_c, acc)
+//     out[c] = acc - x_c
+//   kInStore (their VJPs, band_bwd.cu, band_rev_bwd.cu):
+//     acc = 0; for c in run(v): acc = acc + x_c     (= fmaf(1, x_c, acc))
+//     out[c] = fmaf(w[c], acc, -x_c)
 //
-// in that order, which is the order of every z build in the port
-// (band_rev_layer.cu, band_matmul.cu), so that their outputs equal those
-// kernels' z bit for bit.
+// in CSR order from 0, which is the order of every z build in the port
+// (band_rev_layer.cu, band_matmul.cu): the forward outputs equal those
+// kernels' z bit for bit, and with unit weights the VJPs' dm equals the
+// forward readout less the row bit for bit. x_c is row rows(c) of the
+// input: row c itself (Direct) or row idx[c] (Gather; band_rev_bwd.cu reads
+// g[srev c]).
 //
 // What bounds them is HBM, and the design keeps many bytes in flight:
 //
@@ -16,13 +27,20 @@
 //   over a flattened index, so every thread makes one round trip for the
 //   whole run (a run's chunk at H = 300 is 75 float4 threads, not 10
 //   passes of one warp).
-// * The run is read in groups of UNROLL rows whose loads are all issued,
-//   each predicated on the run's end, before the first fmaf; runs longer
-//   than UNROLL loop over groups. The rows of the last group stay in
-//   registers.
-// * m is read through the read-only path (ld.global.nc); the 16-byte path
-//   (VEC = 4) needs H % 4 == 0 and 16-byte aligned rows (vec4_ok), else
-//   VEC = 1 reads one float a thread.
+// * The run is read in groups of UNROLL rows: the group's row indices
+//   (for Gather), then its weights and rows, each load predicated on the
+//   run's end and all issued before the first add; runs longer than
+//   UNROLL loop over groups. The rows and weights of the last group stay
+//   in registers, so a run that fits one group is read once.
+// * Padding rows (p >= rowptr[A]) lie in no run and have weight 0, so
+//   out[p] = -x_p. They are spread over the atoms' items without the host
+//   knowing how many there are: item (v, k) takes rows rowptr[A] + v,
+//   + v + A, ... below B, the first loaded together with its run.
+// * Everything stays in registers (no shared memory, no atomics): every
+//   output row is written by exactly one thread.
+// * Inputs are read through the read-only path (ld.global.nc); the
+//   16-byte path (VEC = 4) needs H % 4 == 0 and 16-byte aligned rows
+//   (vec4_ok), else VEC = 1 reads one float a thread.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,6 +54,21 @@ constexpr int THREADS = 128;
 // rows of a run in flight together: every run of the bench batch fits one
 // group (PERF.md §6)
 constexpr int UNROLL = 4;
+
+enum Weights { kInSum, kInStore };
+
+// the input row of run element c: c itself ...
+struct Direct {
+  __device__ __forceinline__ int operator()(int c) const { return c; }
+};
+
+// ... or idx[c]
+struct Gather {
+  const int* idx;
+  __device__ __forceinline__ int operator()(int c) const {
+    return __ldg(idx + c);
+  }
+};
 
 // the 16-byte path: every row of a width-H matrix at p and q starts on a
 // 16-byte boundary
@@ -63,41 +96,132 @@ __device__ __forceinline__ void store(float* p, const float (&x)[VEC]) {
     *p = x[0];
 }
 
-// rows [base, min(base + UNROLL, c1)) of m at column col, all loads issued
-// before any is used
-template <int VEC>
+// w[c] for c in [base, min(base + UNROLL, c1))
+__device__ __forceinline__ void load_weights(const float* __restrict__ w,
+                                             int base, int c1,
+                                             float (&wc)[UNROLL]) {
+#pragma unroll
+  for (int r = 0; r < UNROLL; ++r)
+    if (base + r < c1) wc[r] = __ldg(w + base + r);
+}
+
+// input rows rows(c) for c in [base, min(base + UNROLL, c1)) at column
+// col: the row indices first, then every row load, before any is used
+template <int VEC, class Rows = Direct>
 __device__ __forceinline__ void load_group(const float* __restrict__ m,
                                            size_t H, size_t col, int base,
-                                           int c1, float (&x)[UNROLL][VEC]) {
+                                           int c1, float (&x)[UNROLL][VEC],
+                                           const Rows& rows = Rows()) {
+  int row[UNROLL];
+#pragma unroll
+  for (int r = 0; r < UNROLL; ++r)
+    if (base + r < c1) row[r] = rows(base + r);
 #pragma unroll
   for (int r = 0; r < UNROLL; ++r)
     if (base + r < c1)
-      load<VEC>(m + static_cast<size_t>(base + r) * H + col, x[r]);
+      load<VEC>(m + static_cast<size_t>(row[r]) * H + col, x[r]);
 }
 
-// acc = sum over c in [c0, c1) of w[c] m[c, col:col + VEC], fmaf from 0 in
-// CSR order. On return x holds the rows of the last group, which is the
-// whole run when c1 - c0 <= UNROLL.
-template <int VEC>
+// acc = the run's sum over c in [c0, c1) at columns [col, col + VEC),
+// weighted as WT says. On return x and wc hold the rows and weights of
+// the last group, which is the whole run when c1 - c0 <= UNROLL.
+template <int VEC, Weights WT = kInSum, class Rows = Direct>
 __device__ __forceinline__ void run_sum(const float* __restrict__ m,
                                         const float* __restrict__ w,
                                         size_t H, size_t col, int c0, int c1,
                                         float (&acc)[VEC],
-                                        float (&x)[UNROLL][VEC]) {
+                                        float (&x)[UNROLL][VEC],
+                                        float (&wc)[UNROLL],
+                                        const Rows& rows = Rows()) {
 #pragma unroll
   for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
   for (int base = c0; base < c1; base += UNROLL) {
-    float wc[UNROLL];
-#pragma unroll
-    for (int r = 0; r < UNROLL; ++r)
-      if (base + r < c1) wc[r] = __ldg(w + base + r);
-    load_group<VEC>(m, H, col, base, c1, x);
+    load_weights(w, base, c1, wc);
+    load_group<VEC>(m, H, col, base, c1, x, rows);
 #pragma unroll
     for (int r = 0; r < UNROLL; ++r)
       if (base + r < c1) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wc[r], x[r][e], acc[e]);
+        for (int e = 0; e < VEC; ++e)
+          acc[e] = WT == kInSum ? fmaf(wc[r], x[r][e], acc[e])
+                                : acc[e] + x[r][e];
       }
+  }
+}
+
+// out[c] for c in [base, min(base + UNROLL, c1)) from the group's rows x
+// and weights wc, as WT says
+template <int VEC, Weights WT>
+__device__ __forceinline__ void store_group(float* __restrict__ out,
+                                            size_t H, size_t col, int base,
+                                            int c1, const float (&acc)[VEC],
+                                            const float (&x)[UNROLL][VEC],
+                                            const float (&wc)[UNROLL]) {
+#pragma unroll
+  for (int r = 0; r < UNROLL; ++r)
+    if (base + r < c1) {
+      float o[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        o[e] = WT == kInSum ? acc[e] - x[r][e]
+                            : fmaf(wc[r], acc[e], -x[r][e]);
+      store<VEC>(out + static_cast<size_t>(base + r) * H + col, o);
+    }
+}
+
+// out[c] for every c of the run after run_sum: from the rows still in
+// registers when the run fits one group, else reading them again
+template <int VEC, Weights WT = kInSum, class Rows = Direct>
+__device__ __forceinline__ void run_store(const float* __restrict__ m,
+                                          const float* __restrict__ w,
+                                          float* __restrict__ out, size_t H,
+                                          size_t col, int c0, int c1,
+                                          const float (&acc)[VEC],
+                                          float (&x)[UNROLL][VEC],
+                                          float (&wc)[UNROLL],
+                                          const Rows& rows = Rows()) {
+  if (c1 - c0 <= UNROLL) {
+    store_group<VEC, WT>(out, H, col, c0, c1, acc, x, wc);
+    return;
+  }
+  for (int base = c0; base < c1; base += UNROLL) {
+    if constexpr (WT == kInStore) load_weights(w, base, c1, wc);
+    load_group<VEC>(m, H, col, base, c1, x, rows);
+    store_group<VEC, WT>(out, H, col, base, c1, acc, x, wc);
+  }
+}
+
+// The padding rows of item v: p = rowptr[A] + v + jA below B, out[p] =
+// -x_p. pad_first loads the first before the run is read and returns p;
+// pad_store writes them all after it.
+template <int VEC, class Rows = Direct>
+__device__ __forceinline__ size_t pad_first(const float* __restrict__ m,
+                                            const int* __restrict__ rowptr,
+                                            int A, int B, size_t H,
+                                            size_t col, int v,
+                                            float (&y)[VEC],
+                                            const Rows& rows = Rows()) {
+  const size_t p = static_cast<size_t>(__ldg(rowptr + A)) + v;
+  if (p < static_cast<size_t>(B))
+    load<VEC>(m + static_cast<size_t>(rows(static_cast<int>(p))) * H + col,
+              y);
+  return p;
+}
+
+template <int VEC, class Rows = Direct>
+__device__ __forceinline__ void pad_store(const float* __restrict__ m,
+                                          float* __restrict__ out, int A,
+                                          int B, size_t H, size_t col,
+                                          size_t p, float (&y)[VEC],
+                                          const Rows& rows = Rows()) {
+  for (; p < static_cast<size_t>(B); p += A) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) y[e] = -y[e];
+    store<VEC>(out + p * H + col, y);
+    const size_t q = p + A;
+    if (q < static_cast<size_t>(B))
+      load<VEC>(
+          m + static_cast<size_t>(rows(static_cast<int>(q))) * H + col, y);
   }
 }
 

@@ -143,6 +143,59 @@ def test_band_bwd_plain_matches_jax_kernel(interpret_mode, kind):
         assert np.abs(other - got)[:c.n_real].max() > 0.1
 
 
+def _long_run_csr(H):
+    """A synthetic CSR: atom 0 empty, then runs of every length 0..40 in a
+    shuffled order (820 real rows), 37 padding rows, fractional weights,
+    a cotangent g not zero on padding rows, and an involution srev over
+    the real rows that maps every padding row to itself."""
+    rng = np.random.default_rng(4)
+    counts = np.concatenate([[0], rng.permutation(41)])
+    rowptr = np.zeros(counts.shape[0] + 1, np.int32)
+    np.cumsum(counts, out=rowptr[1:])
+    n_real = int(rowptr[-1])
+    B = n_real + 37
+    w = np.zeros(B, np.float32)
+    w[:n_real] = rng.uniform(0.05, 1.0, n_real)
+    g = rng.normal(size=(B, H)).astype(np.float32)
+    pairs = rng.permutation(n_real).reshape(-1, 2)
+    srev = np.arange(B, dtype=np.int32)
+    srev[pairs[:, 0]], srev[pairs[:, 1]] = pairs[:, 1], pairs[:, 0]
+    return g, w, rowptr, srev, n_real
+
+
+def _bwd_by_definition(kernel, g, w, rowptr, srev):
+    """dm in float64, written out as the headers of csrc/band_bwd.cu and
+    csrc/band_rev_bwd.cu define it, one row at a time."""
+    x = g.astype(np.float64)
+    rows = np.arange(g.shape[0]) if kernel == "band_bwd" else srev
+    dm = -x[rows]                        # padding rows, weight 0
+    for v in range(rowptr.shape[0] - 1):
+        run = range(rowptr[v], rowptr[v + 1])
+        total = sum((x[rows[c]] for c in run), np.zeros(g.shape[1]))
+        for c in run:
+            dm[c] = w[c] * total - x[rows[c]]
+    return dm
+
+
+@pytest.mark.parametrize("H", [4, 37])
+@pytest.mark.parametrize("kernel", ["band_bwd", "band_rev_bwd"])
+def test_bwd_plain_versions_match_their_definition_on_runs_up_to_40(kernel,
+                                                                    H):
+    """band_bwd_plain and band_rev_bwd_plain against a float64 loop on
+    runs of 0 to 40 rows, fractional weights and padding rows. Tolerance:
+    1e-6 of the largest entry (FP32 sums of up to 40 rows); padding rows
+    exactly -g (or -g[srev])."""
+    g, w, rowptr, srev, n_real = _long_run_csr(H)
+    T = torch.from_numpy
+    if kernel == "band_bwd":
+        got = bm.band_bwd_plain(T(g), T(w), T(rowptr)).numpy()
+    else:
+        got = bm.band_rev_bwd_plain(T(g), T(w), T(srev), T(rowptr)).numpy()
+    want = _bwd_by_definition(kernel, g, w, rowptr, srev)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    np.testing.assert_array_equal(got[n_real:], want[n_real:])
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_band_message_step_sorted_matches_jax_and_natural_order(
         interpret_mode, kind):

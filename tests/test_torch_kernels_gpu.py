@@ -389,13 +389,16 @@ def test_wrapper_rejects_bad_inputs(cuda):
                                   a["rowptr"], "relu")
 
 
-# -- the CSR-row kernels (atom_readout, band_agg) -----------------------------
+# -- the CSR-row kernels (atom_readout, band_agg, band_bwd, band_rev_bwd) -----
+
+CSR_KERNELS = ["atom_readout", "band_agg", "band_bwd", "band_rev_bwd"]
 
 
 def _long_runs(H, dev):
     """A synthetic CSR: atom 0 empty, then runs of every length 0..40 in a
     shuffled order (820 real rows), 37 padding rows, fractional weights; m
-    not zero on padding rows."""
+    not zero on padding rows; srev an involution over the real rows that
+    maps every padding row to itself."""
     rng = np.random.default_rng(4)
     counts = np.concatenate([[0], rng.permutation(41)])
     rowptr = np.zeros(counts.shape[0] + 1, np.int32)
@@ -405,23 +408,40 @@ def _long_runs(H, dev):
     w = np.zeros(B, np.float32)
     w[:n_real] = rng.uniform(0.05, 1.0, n_real)
     m = rng.normal(size=(B, H)).astype(np.float32)
+    pairs = rng.permutation(n_real).reshape(-1, 2)
+    srev = np.arange(B, dtype=np.int32)
+    srev[pairs[:, 0]], srev[pairs[:, 1]] = pairs[:, 1], pairs[:, 0]
     T = lambda x: torch.as_tensor(x, device=dev)
-    return T(m), T(w), T(rowptr), n_real
+    return T(m), T(w), T(rowptr), T(srev), n_real
+
+
+def _csr_call(kernel, fn, x, ws, srev, rp):
+    """``fn`` (the wrapper or its plain version) with ``kernel``'s
+    arguments: band_rev_bwd also takes srev."""
+    if kernel == "band_rev_bwd":
+        return fn(x, ws, srev, rp)
+    return fn(x, ws, rp)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("H", [4, 37, 300, 333])
 def test_csr_kernels_on_runs_up_to_40(cuda, H):
-    """Both kernels against their plain versions on runs of 0 to 40 rows
-    (the unrolled groups and the loop over them; one float a thread at
-    H = 37 and 333), atom 0 exactly 0, padding rows of z exactly -m."""
-    m, w, rp, n_real = _long_runs(H, cuda)
-    a = band_mpnn.atom_readout(m, w, rp)
-    z = band_mpnn.band_agg(m, w, rp)
-    _close(a, band_mpnn.atom_readout_plain(m, w, rp))
-    _close(z, band_mpnn.band_agg_plain(m, w, rp))
-    assert (a[0] == 0).all()
-    assert torch.equal(z[n_real:], -m[n_real:])
+    """The four kernels against their plain versions on runs of 0 to 40
+    rows (the unrolled groups and the loop over them; one float a thread
+    at H = 37 and 333), atom 0 exactly 0, padding rows of z and dm exactly
+    -m (band_rev_bwd: -m[srev])."""
+    m, w, rp, srev, n_real = _long_runs(H, cuda)
+    out = {}
+    for kernel in CSR_KERNELS:
+        out[kernel] = _csr_call(kernel, getattr(band_mpnn, kernel), m, w,
+                                srev, rp)
+        _close(out[kernel], _csr_call(
+            kernel, getattr(band_mpnn, f"{kernel}_plain"), m, w, srev, rp))
+    assert (out["atom_readout"][0] == 0).all()
+    assert torch.equal(out["band_agg"][n_real:], -m[n_real:])
+    assert torch.equal(out["band_bwd"][n_real:], -m[n_real:])
+    assert torch.equal(out["band_rev_bwd"][n_real:],
+                       -m[srev[n_real:].long()])
 
 
 @pytest.mark.gpu
@@ -447,23 +467,48 @@ def test_csr_kernels_equal_the_fp32_stage_z_bit_for_bit(cuda, kind, H):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["atom_readout", "band_agg"])
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [32, 300, 333])
+def test_bwd_kernels_with_unit_weights_equal_the_readout_bit_for_bit(
+        cuda, kind, H):
+    """With unit weights ``band_bwd(g)[c] = G[dst c] - g[c]`` and
+    ``band_rev_bwd(g)[c] = S[dst c] - g[srev c]``, with G and S the atom
+    readout of g and of g[srev]: the same sum from 0 in CSR order, and
+    fmaf(1, G, -x) is G - x. Real rows, torch.equal."""
+    _, _, g, _, a, n_real = _plain_band_operands(kind, H, cuda)
+    rp, srev = a["rowptr"], a["srev"]
+    ones = torch.ones_like(a["w_sorted"])
+    dst = torch.repeat_interleave(
+        torch.arange(rp.shape[0] - 1, device=cuda), rp[1:] - rp[:-1])
+    g_rev = g[srev.long()]
+    dm = band_mpnn.band_bwd(g, ones, rp)
+    dm_rev = band_mpnn.band_rev_bwd(g, ones, srev, rp)
+    want = band_mpnn.atom_readout(g, ones, rp)[dst] - g[:n_real]
+    want_rev = (band_mpnn.atom_readout(g_rev, ones, rp)[dst]
+                - g_rev[:n_real])
+    torch.cuda.synchronize()
+    assert torch.equal(dm[:n_real], want)
+    assert torch.equal(dm_rev[:n_real], want_rev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", CSR_KERNELS)
 def test_csr_kernels_take_one_float_a_thread_on_misaligned_rows(cuda,
                                                                 kernel):
     """m as a view 4 bytes past a 16-byte boundary: the C entry takes the
     one-float path (the 16-byte one would fault on it) and gives the
     aligned result bit for bit."""
     m, _, _, _, a, _ = _plain_band_operands("polymer", 300, cuda)
-    ws, rp = a["w_sorted"], a["rowptr"]
+    ws, srev, rp = a["w_sorted"], a["srev"], a["rowptr"]
     flat = torch.empty(m.numel() + 1, device=cuda)
     view = flat[1:].view(m.shape)
     view.copy_(m)
     assert view.is_contiguous() and view.data_ptr() % 16 == 4
     fn = getattr(band_mpnn, kernel)
     plain = getattr(band_mpnn, f"{kernel}_plain")
-    got = fn(view, ws, rp)
-    _close(got, plain(m, ws, rp))
-    assert torch.equal(got, fn(m, ws, rp))
+    got = _csr_call(kernel, fn, view, ws, srev, rp)
+    _close(got, _csr_call(kernel, plain, m, ws, srev, rp))
+    assert torch.equal(got, _csr_call(kernel, fn, m, ws, srev, rp))
 
 
 # -- the tensor-core stage of band_matmul_act / band_matmul -------------------
