@@ -130,8 +130,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and TF32 at (B, 300) x (300, 300) and (28,672, 384) x (384, 384). Both
    kernels must launch in that run. Then ``band_ctrl`` in both modes, at
    unit and polymer weights, with each block's range its own rows and
-   with 512-row windows, and ``fused_matmul`` at both shapes, are held
-   against their plain versions (1e-5 x max|plain| + 1e-6).
+   with 512-row windows, and ``fused_matmul`` at both shapes and at the
+   non-square (B, 300) x (300, 96), are held against their plain versions
+   (1e-5 x max|plain| + 1e-6), ``fused_matmul`` also against FP64 (3e-5 x
+   max). Both report their times beside their library calls (row 8
+   ``relu(addmm)`` and, for ``pure``, ``mm``; row 10 ``mm`` in FP32 and
+   TF32) and their bounds.
 
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
@@ -1661,12 +1665,15 @@ def probe_path(card, dev, gb, results):
                 hold("band_ctrl", f"band_ctrl {mode} {weights} {label}",
                      pk.band_ctrl(m, inp, wh, w, lo, hi, mode),
                      pk.band_ctrl_plain(m, inp, wh, w, lo, hi, mode))
-    for n, k in ((B, H), JAX_PROBE_SHAPE):
-        x = normal(n, k)
-        b_hi, b_lo = pk.split_bf16(normal(k, k) * 0.05)
-        hold("fused_matmul", f"fused_matmul ({n}, {k}) x ({k}, {k})",
-             pk.fused_matmul(x, b_hi, b_lo),
-             pk.fused_matmul_plain(x, b_hi, b_lo))
+    for n, k, cols in ((B, H, H), (*JAX_PROBE_SHAPE, JAX_PROBE_SHAPE[1]),
+                       (B, H, 96)):
+        x, b = normal(n, k), normal(k, cols) * 0.05
+        b_hi, b_lo = pk.split_bf16(b)
+        got = pk.fused_matmul(x, b_hi, b_lo)
+        what = f"fused_matmul ({n}, {k}) x ({k}, {cols})"
+        hold("fused_matmul", what, got, pk.fused_matmul_plain(x, b_hi, b_lo))
+        exact = x.double() @ b.double()
+        hold_fp64(results, "fused_matmul", what, got, exact)
 
     # the JSON entries: the probes' own times at the bench shape; bounds
     # from this batch. band_ctrl (noq, own rows): z @ W_h, the z sums (one
@@ -1677,10 +1684,13 @@ def probe_path(card, dev, gb, results):
     r.update(ms=rows["noq"]["ms"], ms_pure=rows["pure"]["ms"],
              plain_ms=rows["noq_plain"]["ms"],
              library_ms=rows["library_same"]["ms"],
+             library_ms_pure=rows["library_same_pure"]["ms"],
              ms_layer_full=full, ms_split=split)
     c_bytes = 4 * (3 * B * H + H * H + B + 2 * nblk)
     c_ops = 2 * B * H * H + 2 * B * H + B * H
     r["bound_ms"], r["bound_by"] = bound(c_bytes, c_ops)
+    # pure: no inp read, no epilogue add
+    r["bound_ms_pure"] = bound(c_bytes - 4 * B * H, c_ops - B * H)[0]
     # fused_matmul: three bf16 passes on the tensor cores; x read and out
     # written once, b_hi and b_lo once
     bench, jax_shape = fused["bench"], fused["jax_shape"]
@@ -1691,15 +1701,28 @@ def probe_path(card, dev, gb, results):
              library_tf32_ms=bench["rows"]["mm_tf32"]["ms"],
              max_rel_err_fp64=bench["errors"]["kernel_vs_fp64"],
              ms_jax_shape=jax_shape["rows"]["fused_matmul"]["ms"],
-             library_ms_jax_shape=jax_shape["rows"]["mm_fp32"]["ms"])
-    f_bytes = 4 * B * H + 4 * B * H + 2 * 2 * H * H
-    f_ops = 3 * 2 * B * H * H
-    r["bound_ms"], r["bound_by"] = bound(f_bytes, f_ops, PEAK_BF16_TC_FLOPS)
+             library_ms_jax_shape=jax_shape["rows"]["mm_fp32"]["ms"],
+             library_tf32_ms_jax_shape=jax_shape["rows"]["mm_tf32"]["ms"])
+
+    def matmul_bound(n, k):
+        return bound(4 * n * k + 4 * n * k + 2 * 2 * k * k, 3 * 2 * n * k * k,
+                     PEAK_BF16_TC_FLOPS)
+    r["bound_ms"], r["bound_by"] = matmul_bound(B, H)
+    r["bound_ms_jax_shape"] = matmul_bound(*JAX_PROBE_SHAPE)[0]
     for name in ("band_ctrl", "fused_matmul"):
         r = results[name]
         log(f"[time] {name} at B={B} H={H}: kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) on {card}")
+    r = results["band_ctrl"]
+    log(f"[time] band_ctrl pure: kernel_ms {r['ms_pure']:.4f} library_ms "
+        f"(mm) {r['library_ms_pure']:.4f} bound_ms {r['bound_ms_pure']:.4f} "
+        f"on {card}")
+    r = results["fused_matmul"]
+    log(f"[time] fused_matmul at {JAX_PROBE_SHAPE}: kernel_ms "
+        f"{r['ms_jax_shape']:.4f} library_ms {r['library_ms_jax_shape']:.4f} "
+        f"(TF32 {r['library_tf32_ms_jax_shape']:.4f}) bound_ms "
+        f"{r['bound_ms_jax_shape']:.4f} on {card}")
     return launches
 
 
@@ -1767,8 +1790,10 @@ def main() -> int:
         entry.update({k: r[k] for k in (
             "ms_idle_start", "ms_with_z", "ms_h1600", "bound_ms_h1600",
             "ms_train_batch", "ms_train_batch_idle_start", "ms_pure",
+            "library_ms_pure", "bound_ms_pure",
             "ms_layer_full", "ms_split", "library_tf32_ms",
             "max_rel_err_fp64", "ms_jax_shape", "library_ms_jax_shape",
+            "library_tf32_ms_jax_shape", "bound_ms_jax_shape",
             "ms_highest", "ms_default", "bound_ms_highest",
             "ms_with_z_highest",
             "ms_train_batch_highest", "tc_launches", "bound_ms_train_batch",

@@ -22,7 +22,8 @@
 // of this kernel is the layer's without its CSR z build. Only stage 1
 // differs: the block reads no rowptr, src or srev and runs no data-dependent
 // loop per row. Its threads, over the columns, sum the block's single z row
-// once and write it to all ROWS rows of the shared tile.
+// once (two columns a thread in one loop, so that the block waits for one
+// chain of loads) and write it to all ROWS rows of the shared tile.
 #include <cuda_runtime.h>
 
 #include "band_tile.cuh"
@@ -32,7 +33,7 @@ namespace {
 using namespace band_tile;
 
 template <bool EPILOGUE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 band_ctrl_kernel(const float* __restrict__ m,
                  const float* __restrict__ inp,
                  const float* __restrict__ wh,
@@ -42,23 +43,30 @@ band_ctrl_kernel(const float* __restrict__ m,
                  float* __restrict__ out,
                  int B, int H) {
   extern __shared__ float smem[];
-  float* z_s = smem;                     // ROWS x H
-  float* w_s = smem + ROWS * H;          // KS x NCHUNK
+  float* z_s = smem;                     // ROWS x z_stride(H)
+  const int zs = z_stride(H);
   const int row0 = blockIdx.x * ROWS;
   const int nrows = min(ROWS, B - row0);
   const int c0 = max(lo[blockIdx.x], 0);
   const int c1 = min(hi[blockIdx.x], B);
 
-  // 1. the block's z row, written to its real rows (the others stay 0)
-  for (int j = threadIdx.x; j < H; j += THREADS) {
-    float acc = 0.f;
-#pragma unroll 4
-    for (int c = c0; c < c1; ++c)
-      acc = fmaf(w[c], m[static_cast<size_t>(c) * H + j], acc);
-    for (int r = 0; r < ROWS; ++r) z_s[r * H + j] = r < nrows ? acc : 0.f;
+  // 1. the block's z row, written to its real rows (the others stay 0):
+  // columns j and j + THREADS of a thread summed in one loop, two chains
+  for (int j = threadIdx.x; j < H; j += 2 * THREADS) {
+    const int j2 = j + THREADS < H ? j + THREADS : j;
+    float acc = 0.f, acc2 = 0.f;
+#pragma unroll 16   // the range's loads in flight together
+    for (int c = c0; c < c1; ++c) {
+      const float* mc = m + static_cast<size_t>(c) * H;
+      acc = fmaf(w[c], mc[j], acc);
+      acc2 = fmaf(w[c], mc[j2], acc2);
+    }
+    for (int r = 0; r < ROWS; ++r) {
+      z_s[r * zs + j] = r < nrows ? acc : 0.f;
+      z_s[r * zs + j2] = r < nrows ? acc2 : 0.f;
+    }
   }
-  __syncthreads();
-  product_stage<EPILOGUE>(z_s, w_s, wh, inp, out, row0, B, H, /*relu*/ 0);
+  product_stage<EPILOGUE>(smem, wh, inp, out, row0, B, H, /*relu*/ 0);
 }
 
 template <bool EPILOGUE>

@@ -54,7 +54,7 @@ namespace {
 using namespace band_tile;
 
 template <bool EPILOGUE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 band_matmul_kernel(const float* __restrict__ m,
                    const float* __restrict__ inp,
                    const float* __restrict__ wh,
@@ -64,13 +64,13 @@ band_matmul_kernel(const float* __restrict__ m,
                    float* __restrict__ z_out,
                    int A, int B, int H, int act) {
   extern __shared__ float smem[];
-  float* z_s = smem;                     // ROWS x H
-  float* w_s = smem + ROWS * H;          // KS x NCHUNK
-  int* atom_s = reinterpret_cast<int*>(w_s + KS * NCHUNK);   // ROWS
+  float* z_s = smem;                     // ROWS x z_stride(H)
+  int* atom_s = tile_ints(smem, H);      // ROWS
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int row0 = blockIdx.x * ROWS;
+  const int zs = z_stride(H);
 
   // destination atom of each row of the tile: the v with
   // rowptr[v] <= t < rowptr[v + 1]; A for a padding row (t >= rowptr[A])
@@ -88,7 +88,7 @@ band_matmul_kernel(const float* __restrict__ m,
   // z tile: the run of the row's destination atom minus the row itself
   for (int r = warp; r < ROWS; r += THREADS / 32) {
     const int t = row0 + r;
-    float* zr = z_s + r * H;
+    float* zr = z_s + r * zs;
     if (t >= B) {
       for (int j = lane; j < H; j += 32) zr[j] = 0.f;
       continue;
@@ -106,7 +106,7 @@ band_matmul_kernel(const float* __restrict__ m,
   }
   __syncthreads();
   if (z_out != nullptr) store_tile(z_s, z_out, row0, B, H);
-  product_stage<EPILOGUE>(z_s, w_s, wh, inp, out, row0, B, H, act);
+  product_stage<EPILOGUE>(smem, wh, inp, out, row0, B, H, act);
 }
 
 template <bool EPILOGUE>

@@ -55,7 +55,7 @@ namespace {
 
 using namespace band_tile;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 band_rev_layer_kernel(const float* __restrict__ m,
                       const float* __restrict__ inp,
                       const float* __restrict__ wh,
@@ -67,17 +67,17 @@ band_rev_layer_kernel(const float* __restrict__ m,
                       float* __restrict__ z_out,
                       int B, int H, int act) {
   extern __shared__ float smem[];
-  float* z_s = smem;                     // ROWS x H
-  float* w_s = smem + ROWS * H;          // KS x NCHUNK
+  float* z_s = smem;                     // ROWS x z_stride(H)
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int row0 = blockIdx.x * ROWS;
+  const int zs = z_stride(H);
 
   // 1. z tile: incoming run of src(t) minus the reverse message
   for (int r = warp; r < ROWS; r += THREADS / 32) {
     const int t = row0 + r;
-    float* zr = z_s + r * H;
+    float* zr = z_s + r * zs;
     if (t >= B) {
       for (int j = lane; j < H; j += 32) zr[j] = 0.f;
       continue;
@@ -95,7 +95,7 @@ band_rev_layer_kernel(const float* __restrict__ m,
   }
   __syncthreads();
   if (z_out != nullptr) store_tile(z_s, z_out, row0, B, H);
-  product_stage<true>(z_s, w_s, wh, inp, out, row0, B, H, act);
+  product_stage<true>(smem, wh, inp, out, row0, B, H, act);
 }
 
 // the block's rows' runs, [c0, c1) of the row's source atom (empty for a

@@ -145,7 +145,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.band_ctrl_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         lib.band_ctrl_f32.restype = i
     elif name == "fused_matmul":
-        lib.fused_matmul_f32.argtypes = [p, p, p, p, i, i, i, p]
+        lib.fused_matmul_f32.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.fused_matmul_f32.restype = i
+        lib.fused_matmul_scratch_bytes.argtypes = [i, i]
+        lib.fused_matmul_scratch_bytes.restype = ctypes.c_size_t
     else:
         raise ValueError(f"unknown kernel library {name!r}")

@@ -13,9 +13,11 @@
   computes ``_ctrl_apply``.
 * :func:`fused_matmul`: ``x_hi @ b_hi + x_hi @ b_lo + x_lo @ b_hi`` on the
   tensor cores, x split into bf16 halves as the kernel stages it
-  (csrc/fused_matmul.cu; replaces scripts/fused_matmul_probe.py
+  (csrc/fused_matmul.cu, ``wgmma`` on the machinery of
+  csrc/band_tile_sm90.cuh; replaces scripts/fused_matmul_probe.py
   ``_fused_kernel``); :func:`split_bf16` (from :mod:`.band_mpnn`) splits
-  the weight once.
+  the weight once, and the wrapper packs both halves into a scratch of
+  :func:`fused_matmul_scratch_bytes` per call.
 
 As in :mod:`.band_mpnn`, a wrapper given CPU tensors computes the plain
 PyTorch version beside it; given CUDA tensors it launches its kernel on the
@@ -31,6 +33,9 @@ import numpy as np
 import torch
 
 from .band_mpnn import (  # noqa: F401 (split_bf16 is part of this API)
+    _TC_KC,
+    _TC_NP,
+    _TC_SLICE_BYTES,
     _check,
     _check_fits,
     _raise_on,
@@ -66,6 +71,13 @@ def window_ranges(starts: np.ndarray, B: int, device=None
     return (torch.as_tensor(lo.astype(np.int32), device=device),
             torch.as_tensor((lo + TPU_WINDOW).astype(np.int32),
                             device=device))
+
+
+def fused_matmul_scratch_bytes(K: int, M: int) -> int:
+    """Bytes of the packed ``(b_hi, b_lo)`` that :func:`fused_matmul`
+    takes at (K, M): one slice of the tensor-core stage per (column pass,
+    depth chunk) (csrc/fused_matmul.cu ``scratch_bytes``)."""
+    return (-(-M // _TC_NP)) * (-(-K // _TC_KC)) * _TC_SLICE_BYTES
 
 
 # -- plain versions ----------------------------------------------------------
@@ -173,11 +185,14 @@ def fused_matmul(x: torch.Tensor, b_hi: torch.Tensor,
     from ..kernels.build import load
     lib = load("fused_matmul")
     out = x.new_empty((N, M))
+    # b_hi and b_lo packed into the stage's swizzled slices, per call
+    scratch = torch.empty(fused_matmul_scratch_bytes(K, M),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_matmul_f32(x.data_ptr(), b_hi.data_ptr(),
-                                   b_lo.data_ptr(), out.data_ptr(), N, K, M,
-                                   stream)
+                                   b_lo.data_ptr(), scratch.data_ptr(),
+                                   out.data_ptr(), N, K, M, stream)
     _raise_on(err, "fused_matmul")
     fused_matmul.launches += 1
     return out

@@ -750,7 +750,8 @@ def _ctrl_operands(B, H, w_sorted, weights, dev):
 @pytest.mark.parametrize("mode", ["noq", "pure"])
 @pytest.mark.parametrize("ranges", ["own rows", "512-row windows"])
 @pytest.mark.parametrize("weights", ["unit", "polymer"])
-@pytest.mark.parametrize("shape", ["bench", (1000, 300), (1000, 96)])
+@pytest.mark.parametrize("shape", ["bench", (1000, 300), (1000, 96),
+                                   (1000, 1495)])
 def test_band_ctrl_matches_plain(cuda, bench_b, shape, weights, ranges,
                                  mode):
     B, H = (bench_b[0], 300) if shape == "bench" else shape
@@ -783,18 +784,26 @@ def test_band_ctrl_without_weights_is_the_activation_of_inp(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", ["bench", (1000, 300), (1000, 96),
-                                   (28672, 384), (77, 33)])
+                                   (28672, 384), (77, 33),
+                                   # (N, K, M): K != M, M over one column
+                                   # pass of 304 and over two, K ragged and
+                                   # deeper than one chunk of 64
+                                   (1000, 300, 96), (1000, 96, 300),
+                                   (1000, 300, 384), (77, 33, 610),
+                                   (130, 700, 20)])
 def test_fused_matmul_matches_plain(cuda, bench_b, shape):
-    N, K = (bench_b[0], 300) if shape == "bench" else shape
+    N, K, M = ((bench_b[0], 300, 300) if shape == "bench"
+               else shape if len(shape) == 3 else (*shape, shape[1]))
     rng = np.random.default_rng(3)
     x = torch.as_tensor(rng.normal(size=(N, K)).astype(np.float32),
                         device=cuda)
-    w = torch.as_tensor((rng.normal(size=(K, K)) * 0.05).astype(np.float32),
+    w = torch.as_tensor((rng.normal(size=(K, M)) * 0.05).astype(np.float32),
                         device=cuda)
     b_hi, b_lo = probe_kernels.split_bf16(w)
     before = probe_kernels.fused_matmul.launches
     got = probe_kernels.fused_matmul(x, b_hi, b_lo)
     assert probe_kernels.fused_matmul.launches == before + 1
+    assert got.shape == (N, M)
     _close(got, probe_kernels.fused_matmul_plain(x, b_hi, b_lo))
     # the split itself: within about 1e-5 of the float32 product
     exact = x.double() @ w.double()
@@ -821,3 +830,63 @@ def test_probe_wrappers_reject_bad_inputs(cuda):
         probe_kernels.fused_matmul(m, b_hi[:-1], b_lo[:-1])
     with pytest.raises(ValueError, match="contiguous"):
         probe_kernels.fused_matmul(m.t().contiguous().t(), b_hi, b_lo)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary: the FP32 stage's one-float path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["noq", "pure"])
+@pytest.mark.parametrize("H", [300, 96, 1495])
+def test_fp32_stage_paths_give_the_same_bits(cuda, H, mode):
+    """The stage's float4 path (H % 4 == 0, aligned) and its one-float
+    path (misaligned W_h) run the same fmaf chain: equal bits; at H = 1,495
+    (five column passes) the one-float path against the plain version."""
+    B = 1000
+    m, inp, wh, w = _ctrl_operands(B, H, np.ones(B, np.float32), "unit",
+                                   cuda)
+    lo, hi = probe_kernels.own_row_ranges(B, cuda)
+    got = probe_kernels.band_ctrl(m, inp, wh, w, lo, hi, mode)
+    odd = probe_kernels.band_ctrl(m, inp, _misaligned(wh), w, lo, hi, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, odd)
+    _close(got, probe_kernels.band_ctrl_plain(m, inp, wh, w, lo, hi, mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+def test_highest_layer_at_the_widest_fused_width(cuda, kind):
+    """band_rev_layer and band_matmul_act at "highest" and H = 1,495 (the
+    block's whole shared memory, five column passes, the one-float path)
+    against their plain versions, with relu so that the output keeps the
+    pre-activation's scale, and z bit for bit the CSR kernels'."""
+    H = 1495
+    m, inp, wh, a, n_real = _batch(kind, H, cuda)
+    idx = (a["w_sorted"], a["src_sorted"], a["srev"], a["rowptr"])
+    out, z = band_mpnn.band_rev_layer_forward(m, inp, wh, *idx, "relu", True,
+                                              "highest")
+    _close(out, band_mpnn.band_rev_layer_plain(m, inp, wh, *idx, "relu"))
+    _close(z, band_mpnn.band_rev_z_plain(m, *idx))
+    out, z = band_mpnn.band_matmul_act_forward(
+        m, inp, wh, a["w_sorted"], a["rowptr"], "relu", True, "highest")
+    _close(out, band_mpnn.band_matmul_act_plain(m, inp, wh, a["w_sorted"],
+                                                a["rowptr"], "relu"))
+    torch.cuda.synchronize()
+    assert torch.equal(z, band_mpnn.band_agg(m, a["w_sorted"], a["rowptr"]))
+
+
+@pytest.mark.gpu
+def test_fused_matmul_scratch_matches_the_library(cuda):
+    from polymer_chemprop_tpu_torch.kernels.build import load
+    lib = load("fused_matmul")
+    for K, M in ((300, 300), (384, 384), (300, 96), (33, 610), (1, 1),
+                 (64, 304), (65, 305)):
+        assert lib.fused_matmul_scratch_bytes(K, M) \
+            == probe_kernels.fused_matmul_scratch_bytes(K, M)

@@ -11,8 +11,9 @@
   ``pallas_mpnn._dot_band`` at ``Precision.HIGH``. Tolerance 1e-5 of max:
   the same exact bf16 x bf16 products, summed in another order.
 * ``split_bf16`` bit for bit against the JAX split.
-* Both probes' entry points on the CPU at a tiny size, and the wrappers on a
+* The probes' entry points on the CPU at a tiny size, and the wrappers on a
   device that is neither CPU nor CUDA.
+* The shared-memory and scratch arithmetic that the Python side mirrors.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_kernels_gpu.py and chip_smoke.py. Nothing in
@@ -33,9 +34,11 @@ from polymer_chemprop_tpu.ops import pallas_mpnn as pm
 from polymer_chemprop_tpu_torch.features import mol2graph
 from polymer_chemprop_tpu_torch.ops import probe_kernels as pk
 from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
+from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
 from polymer_chemprop_tpu_torch.probes import (band_layer_probe,
                                                csr_rows_probe,
-                                               fused_matmul_probe)
+                                               fused_matmul_probe,
+                                               stage_probe)
 from polymer_chemprop_tpu_torch.probes.bench_batch import bench_smiles
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
@@ -261,3 +264,53 @@ def test_csr_rows_probe_runs_on_cpu(csr_probe_out, kernel):
             kernel, row["B"], row["A"], row["H"], row["n_real"])
         assert len(r["sha256"]) == 64 and int(r["sha256"], 16) >= 0
         assert ("in_order" in r) == (kernel == "band_rev_bwd")
+
+
+def test_fp32_stage_fills_the_block_at_the_widest_fused_width():
+    """The FP32 stage's shared memory (band_tile.cuh smem_bytes) is the
+    card's whole 227 KiB opt-in at hidden 1,495, so the fused forms stop
+    there."""
+    assert bm.fused_layer_smem_bytes(1495) == 232448 == bm.SMEM_PER_BLOCK
+    assert bm.fused_layer_fits(1495) and not bm.fused_layer_fits(1496)
+
+
+@pytest.mark.parametrize("K, M, slices", [(300, 300, 5), (384, 384, 12),
+                                          (300, 96, 5), (96, 300, 2),
+                                          (33, 610, 3), (64, 304, 1),
+                                          (65, 305, 4)])
+def test_fused_matmul_scratch_holds_one_slice_per_pass_and_chunk(K, M,
+                                                                slices):
+    """Column passes of 304 by depth chunks of 64, each slice the hi and
+    lo halves of 304 x 64 bf16 (csrc/fused_matmul.cu scratch_bytes)."""
+    assert pk.fused_matmul_scratch_bytes(K, M) == slices * 2 * 2 * 304 * 64
+
+
+def test_stage_probe_runs_on_the_cpu(capsys):
+    """The stage probe's entry point on the CPU (plain versions, host
+    clock): every row timed and hashed, z hashed where it is written and
+    equal across precisions, and the wgmma stage's split."""
+    out = stage_probe.main(["--device", "cpu", "--molecules", "16",
+                            "--hidden", "32", "--reps", "2"])
+    printed = capsys.readouterr().out
+    rows = out["rows"]
+    assert len(rows) == 3 * 5 + 3
+    for name, row in rows.items():
+        assert row["ms"] > 0 and len(row["sha256"]) == 64
+        assert f"\n{name} " in printed
+        assert ("z_sha256" in row) == (name.endswith("_z")
+                                       or name.startswith("band_matmul "))
+    for form in ("band_rev_layer", "band_matmul_act"):
+        # z is the FP32 aggregation at every precision, and writing it
+        # leaves the output as it is
+        assert len({rows[f"{form} {p}_z"]["z_sha256"]
+                    for p in stage_probe.PRECISIONS}) == 1
+        for p in stage_probe.PRECISIONS:
+            assert rows[f"{form} {p}"]["sha256"] \
+                == rows[f"{form} {p}_z"]["sha256"]
+    assert rows["band_matmul highest"]["z_sha256"] \
+        == rows["band_matmul_act highest_z"]["z_sha256"]
+    for form, split in out["split"].items():
+        assert split["product"] == rows["fused_matmul"]["ms"]
+        assert split["product"] + split["build_epilogue"] \
+            == pytest.approx(rows[f"{form} high"]["ms"])
+    assert "TFLOP/s" not in printed and "GB/s" not in printed
