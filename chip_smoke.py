@@ -10,7 +10,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Print the card (``nvidia-smi`` name and power limit, torch's device
    name) and build every CUDA kernel with ``nvcc`` (one process per
-   source, started together).
+   source, started together) and, beside them, the C++ host featurizer
+   with ``g++`` (``native_ext.py``). The ``[host]`` lines then featurize
+   and batch the bench batch's 1,024 SMILES with the Python path and
+   with the C++ library at 1, 4 and 8 threads (median of 5 calls, host
+   clock), every array of the C++ batch equal to the Python batch's bit
+   for bit on this host, and time the dst-sorted CSR that either path's
+   batches get and serving's CSV read and Python SMILES validity parse.
 2. Hold each kernel against its plain PyTorch version on the card, on a
    featurized batch of 1024 molecules (about 28k dst-sorted bonds) at
    hidden 300, with unit and polymer (0.25/0.5/0.75) bond weights and
@@ -71,13 +77,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``make_predictions`` on the card on tests/data/regression.csv (500
    molecules) and on 200 synthetic copolymer strings, timing each run end
    to end (host featurization included), at the default
-   ``band_precision`` "high"; then 100 molecules from the regression
+   ``band_precision`` "high", once with the C++ featurizer (the default)
+   and once with ``use_native_featurizer=False`` (the Python one, graph
+   cache emptied first); then 100 molecules from the regression
    checkpoint written at "highest". The kernels' launch counts must equal
-   (depth - 1) x batches and batches, every layer launch on the tensor
-   cores at "high" and none at "highest"; the predictions must be finite
-   and match the same run on the CPU (plain versions, at the same
-   precision) within rtol 1e-4, atol 1e-5 (sums in another order on each
-   side through five layers).
+   (depth - 1) x batches and batches, the same for either featurizer,
+   every layer launch on the tensor cores at "high" and none at
+   "highest"; the predictions must be finite, agree between the
+   featurizers, and match the same run on the CPU (plain versions, at
+   the same precision) within rtol 1e-4, atol 1e-5 (sums in another order
+   on each side through five layers). The fingerprint entry point
+   (``molecule_fingerprint``, "MPN" and "last_FFN") runs on the card from
+   the regression checkpoint with the same exact launch counts, and its
+   fingerprints match the CPU's within rtol 1e-4, atol 1e-5.
 
 4. Training path: ``cross_validate`` on the card at full width (hidden
    300, depth 3, FFN 2 x 300, relu, mean, f32, dropout 0, Noam, Adam,
@@ -93,10 +105,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    orders); the same whole run on the CPU (plain versions) gives the same
    test score within rtol 1e-2 (three epochs of FP32 differences passed
    through Adam's normalisation). The checkpoint the run wrote is then
-   predicted from on the card. Steps/s and molecules/s of the first
-   (featurizing) and last (cached) epoch are printed with the card, and
-   so is a cached epoch's time by part (loader, H2D, forward, backward,
-   optimizer) with the device's busy time from torch.profiler.
+   predicted from on the card. Each card run is made twice, with the C++
+   featurizer and with ``use_native_featurizer=False``: the launch counts
+   must be equal and the test scores agree within rtol 1e-2. Steps/s and
+   molecules/s of the first (featurizing) and last (cached) epoch are
+   printed with the card for both, and so is a cached epoch's time by
+   part (loader, H2D, forward, backward, optimizer) with the device's
+   busy time from torch.profiler.
 
 5. Plain-band path: at the same width, ``cross_validate`` for 3 epochs on
    regression.csv and ``make_predictions`` from the checkpoint it wrote,
@@ -154,7 +169,8 @@ import warnings
 import numpy as np
 import torch
 
-from polymer_chemprop_tpu_torch.probes.bench_batch import bench_batch
+from polymer_chemprop_tpu_torch.probes.bench_batch import (bench_batch,
+                                                            bench_smiles)
 from polymer_chemprop_tpu_torch.probes.timing import flush_buffer, timed_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -166,6 +182,11 @@ TRAIN_EPOCHS = {"regression": 3, "polymer": 2}
 PLAIN_BAND_EPOCHS = 3
 WIDE_HIDDEN, WIDE_MOLECULES = 1600, 100
 HIGHEST_MOLECULES = 100   # serving at band_precision "highest"
+HOST_THREADS = (1, 4, 8)  # the C++ featurizer's threads in the [host] phase
+HOST_REPS = 5
+GRAPH_FIELDS = ("f_atoms", "f_bonds", "w_atoms", "w_bonds", "b2a", "b2dst",
+                "b2revb", "a2mol", "degree_of_polym", "mol_mask")
+FEATURIZERS = (("C++", None), ("Python", False))   # use_native_featurizer
 REV_KERNELS = ("band_rev_layer", "band_rev_bwd")
 CSR_KERNELS = ("atom_readout", "band_agg", "band_bwd",   # csrc/csr_rows.cuh
                "band_rev_bwd")
@@ -226,10 +247,86 @@ def card_and_build():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    import threading
+
+    from polymer_chemprop_tpu_torch import native_ext
     from polymer_chemprop_tpu_torch.kernels import build
+    host = {}      # the C++ featurizer builds (g++) while nvcc runs
+
+    def build_host():
+        try:
+            host["seconds"] = native_ext.build()
+        except Exception as e:           # raised again below
+            host["error"] = e
+    thread = threading.Thread(target=build_host)
+    thread.start()
     seconds = build.build()
     log(f"[build] {len(build.KERNELS)} kernels built in {seconds:.2f} s")
+    thread.join()
+    if "error" in host:
+        raise host["error"]
+    log(f"[build] C++ featurizer {native_ext.library_path().name} built in "
+        f"{host['seconds']:.2f} s (g++, beside nvcc)")
     return card
+
+
+def host_phase(gb, card):
+    """The C++ featurizer on the card's host, on the bench batch's 1,024
+    SMILES: featurize and batch at 1, 4 and 8 threads (median of
+    HOST_REPS calls on the host clock) against the Python path once more,
+    every array equal to the Python path's (``gb``) bit for bit; then the
+    dst-sorted CSR that every batch of either path gets."""
+    from polymer_chemprop_tpu_torch import native_ext
+    from polymer_chemprop_tpu_torch.features import (FeaturizationConfig,
+                                                      mol2graph)
+    smiles = bench_smiles(gb.mol_mask.shape[0])
+    A, B = gb.f_atoms.shape[0], gb.f_bonds.shape[0]
+    t0 = time.perf_counter()
+    mol2graph(smiles)
+    python_s = time.perf_counter() - t0
+    log(f"[host] {len(smiles)} molecules, Python featurize and batch "
+        f"{1e3 * python_s:.1f} ms (one thread, second call) on the host of "
+        f"{card}: {native_ext.cpu_model()}, {os.cpu_count()} cores")
+    for threads in HOST_THREADS:
+        times = []
+        for _ in range(HOST_REPS):
+            t0 = time.perf_counter()
+            got, valid = native_ext.featurize_batch_native(
+                smiles, pad_atoms=A, pad_bonds=B, n_threads=threads)
+            times.append(time.perf_counter() - t0)
+        check(valid.all(), "a bench SMILES is invalid to the C++ featurizer")
+        for k in GRAPH_FIELDS:
+            a, b = getattr(got, k), getattr(gb, k)
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"C++ featurizer's {k} differs from the Python path's")
+        check((got.n_atoms_real, got.n_bonds_real)
+              == (gb.n_atoms_real, gb.n_bonds_real), "real counts differ")
+        ms = 1e3 * float(np.median(times))
+        log(f"[host] C++ featurize and batch at {threads} threads: "
+            f"{ms:.2f} ms (min {1e3 * min(times):.2f}), "
+            f"{1e3 * python_s / ms:.1f}x the Python path; all "
+            f"{len(GRAPH_FIELDS)} arrays equal to the Python path's bit "
+            "for bit")
+    times = []
+    for _ in range(HOST_REPS):
+        t0 = time.perf_counter()
+        gb.arrays(sorted_aux=True)
+        times.append(time.perf_counter() - t0)
+    log(f"[host] dst-sorted CSR and f_bonds permute of the bench batch "
+        f"(either path): {1e3 * float(np.median(times)):.2f} ms")
+    # what serving does before the loader, whichever the featurizer
+    from polymer_chemprop_tpu_torch.data import get_data, partition_valid
+    fcfg = FeaturizationConfig()
+    t0 = time.perf_counter()
+    data = get_data(os.path.join(ROOT, "tests", "data", "regression.csv"),
+                    target_columns=[], config=fcfg,
+                    skip_invalid_smiles=False, store_row=True)
+    t1 = time.perf_counter()
+    _, valid = partition_valid(data, fcfg)
+    t2 = time.perf_counter()
+    log(f"[host] serving's CSV read {1e3 * (t1 - t0):.1f} ms and Python "
+        f"SMILES validity parse {1e3 * (t2 - t1):.1f} ms of regression.csv "
+        f"({len(valid)} molecules)")
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -1140,28 +1237,50 @@ def main_path(card):
         f.write("smiles\n" + "\n".join(smiles) + "\n")
     jobs.append(("regression_highest", hi_csv, hi_ckpt))
 
+    from polymer_chemprop_tpu_torch.data import empty_cache
     launches = dict.fromkeys(bm.launch_counts(), 0)
     tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
     for name, test_path, ckpt in jobs:
-        def run(device, tag):
+        def run(device, tag, native=None):
             return np.asarray(make_predictions(PredictConfig(
                 test_path=test_path, checkpoint_path=ckpt,
                 preds_path=os.path.join(OUT_DIR, f"{name}_{tag}.csv"),
-                batch_size=BATCH_SIZE, num_workers=4, device=device)),
-                dtype=float)
+                batch_size=BATCH_SIZE, num_workers=4, device=device,
+                use_native_featurizer=native)), dtype=float)
 
-        bm.reset_launch_counts()
-        t0 = time.perf_counter()
-        got = run("cuda", "gpu")          # cold: featurization included
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts, tc = bm.launch_counts(), bm.tc_launch_counts()
-        n = got.shape[0]
-        batches = math.ceil(n / BATCH_SIZE)
-        log(f"[main] {name}: {n} molecules, {batches} batches, launches "
-            f"{counts} (tensor cores {tc}), {n / seconds:.1f} molecules/s "
-            f"end to end ({seconds:.3f} s, featurization included) on "
-            f"{card}")
+        # each featurizer cold (featurization included; the Python path's
+        # graph cache emptied first), counts from 0 before each run
+        runs = {}
+        for featurizer, native in FEATURIZERS:
+            if name == "regression_highest" and native is False:
+                continue
+            empty_cache()
+            bm.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = run("cuda", f"gpu_{featurizer}", native)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts, tc = bm.launch_counts(), bm.tc_launch_counts()
+            runs[featurizer] = got, counts, tc
+            n = got.shape[0]
+            batches = math.ceil(n / BATCH_SIZE)
+            log(f"[main] {name}, {featurizer} featurizer: {n} molecules, "
+                f"{batches} batches, launches {counts} (tensor cores {tc}), "
+                f"{n / seconds:.1f} molecules/s end to end ({seconds:.3f} s, "
+                f"featurization included) on {card}")
+        got, counts, tc = runs["C++"]
+        if "Python" in runs:
+            # the featurizer changes no launch and no bit of the input
+            py_got, py_counts, py_tc = runs["Python"]
+            check((py_counts, py_tc) == (counts, tc),
+                  f"launches differ by featurizer: {py_counts} {counts}")
+            log(f"[main] {name}: max |C++ - Python featurizer| "
+                f"{np.abs(py_got - got).max():.3e}")
+            np.testing.assert_allclose(py_got, got, rtol=1e-4, atol=1e-5)
+            for k in launches:
+                launches[k] += py_counts[k]
+            for k in tc_launches:
+                tc_launches[k] += py_tc[k]
         want = run("cpu", "cpu")          # the plain versions on the CPU
         check(counts["band_rev_layer"] == (DEPTH - 1) * batches, counts)
         check(counts["atom_readout"] == batches, counts)
@@ -1180,6 +1299,61 @@ def main_path(card):
         check(np.isfinite(got).all(), "non-finite predictions")
         err = np.abs(got - want).max()
         log(f"[main] {name}: max |gpu - cpu| {err:.3e}")
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    return launches, tc_launches
+
+
+def fingerprint_path(card):
+    """The fingerprint entry point on the card from the regression
+    checkpoint ``main_path`` wrote, "MPN" and "last_FFN", with exact
+    launch counts, held against the same run on the CPU."""
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.molecule_fingerprint import (
+        FingerprintConfig,
+        molecule_fingerprint,
+    )
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+    tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
+    for fp_type in ("MPN", "last_FFN"):
+        def run(device):
+            return molecule_fingerprint(FingerprintConfig(
+                test_path=os.path.join(ROOT, "tests", "data",
+                                       "regression.csv"),
+                checkpoint_path=os.path.join(OUT_DIR, "regression",
+                                             "model.ckpt"),
+                preds_path=os.path.join(OUT_DIR,
+                                        f"fingerprint_{fp_type}_{device}.csv"),
+                fingerprint_type=fp_type, batch_size=BATCH_SIZE,
+                num_workers=4, device=device))
+
+        bm.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run("cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, tc = bm.launch_counts(), bm.tc_launch_counts()
+        n = got.shape[0]
+        batches = math.ceil(n / BATCH_SIZE)
+        log(f"[fingerprint] {fp_type}: {n} molecules x {got.shape[1]}, "
+            f"{batches} batches, launches {counts} (tensor cores {tc}), "
+            f"{n / seconds:.1f} molecules/s end to end ({seconds:.3f} s) on "
+            f"{card}")
+        check(counts == dict(dict.fromkeys(counts, 0),
+                             band_rev_layer=(DEPTH - 1) * batches,
+                             atom_readout=batches), counts)
+        check(tc == dict(dict.fromkeys(tc, 0),
+                         band_rev_layer=(DEPTH - 1) * batches),
+              f"tensor-core launches {tc}")
+        for k in launches:
+            launches[k] += counts[k]
+        for k in tc_launches:
+            tc_launches[k] += tc[k]
+        want = run("cpu")
+        check(got.shape == want.shape == (n, HIDDEN), (got.shape, want.shape))
+        check(np.isfinite(got).all() and np.abs(got).max() > 0,
+              "fingerprints not finite or all 0")
+        log(f"[fingerprint] {fp_type}: max |gpu - cpu| "
+            f"{np.abs(got - want).max():.3e}")
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     return launches, tc_launches
 
@@ -1203,7 +1377,7 @@ def train_setup(cfg, device):
     train.normalize_targets()
     loader = MoleculeDataLoader(
         train, fcfg, batch_size=cfg.batch_size, shuffle=True, seed=cfg.seed,
-        num_workers=1)
+        num_workers=1, use_native=cfg.use_native_featurizer)
     mcfg = build_model_config(cfg, data.num_tasks)
     model = reference_init_model(mcfg, cfg.pytorch_seed).to(device)
     step = TrainStep(
@@ -1322,25 +1496,20 @@ def training_path(card):
     for name, data_path, polymer in jobs:
         epochs = TRAIN_EPOCHS[name]
 
-        def config(device):
+        def config(device, native=None):
             return TrainConfig(
                 data_path=data_path, dataset_type="regression",
                 polymer=polymer, hidden_size=HIDDEN, depth=DEPTH,
                 ffn_num_layers=2, ffn_hidden_size=HIDDEN, dropout=0.0,
                 epochs=epochs, batch_size=BATCH_SIZE, seed=SEED,
                 num_workers=4, quiet=True, device=device,
+                use_native_featurizer=native,
                 # drop the graphs the serving phase cached, so that the
                 # first epoch featurizes as a fresh run does
                 empty_cache=True,
-                save_dir=os.path.join(OUT_DIR, f"train_{name}_{device}"))
-
-        cfg = config("cuda")
-        bm.reset_launch_counts()
-        t0 = time.perf_counter()
-        score, _ = cross_validate(cfg)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = bm.launch_counts()
+                save_dir=os.path.join(
+                    OUT_DIR, f"train_{name}_{device}"
+                    + ("_python" if native is False else "")))
 
         with open(data_path) as f:
             n = sum(1 for _ in f) - 1
@@ -1350,49 +1519,77 @@ def training_path(card):
         steps = epochs * batches(n_train)
         forwards = steps + epochs * (batches(n_val) + batches(n_train)) \
             + batches(n_test)
-        log(f"[train] {name}: {n} molecules ({n_train}/{n_val}/{n_test}), "
-            f"{epochs} epochs, {steps} steps, {forwards} forwards, launches "
-            f"{counts}, test rmse {score:.6f}, {seconds:.3f} s end to end")
-        check(counts["band_rev_layer"] == (DEPTH - 1) * forwards, counts)
-        check(counts["band_rev_bwd"] == (DEPTH - 1) * steps, counts)
-        check(counts["atom_readout"] == forwards, counts)
-        check(all(counts[k] == 0 for k in PLAIN_BAND_KERNELS), counts)
-        # the default band_precision "high": every layer on the tensor cores
-        tc = bm.tc_launch_counts()
-        check(tc == dict(dict.fromkeys(tc, 0),
-                         band_rev_layer=counts["band_rev_layer"]),
-              f"tensor-core launches {tc}")
-        for k in launches:
-            launches[k] += counts[k]
-        for k in tc_launches:
-            tc_launches[k] += tc[k]
+        # one run a featurizer, counts from 0 before each; the featurizer
+        # changes no launch and no bit of the input
+        scores, run_counts = {}, {}
+        for featurizer, native in FEATURIZERS:
+            cfg = config("cuda", native)
+            bm.reset_launch_counts()
+            t0 = time.perf_counter()
+            score, _ = cross_validate(cfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = bm.launch_counts()
+            log(f"[train] {name}, {featurizer} featurizer: {n} molecules "
+                f"({n_train}/{n_val}/{n_test}), {epochs} epochs, {steps} "
+                f"steps, {forwards} forwards, launches {counts}, test rmse "
+                f"{score:.6f}, {seconds:.3f} s end to end")
+            check(counts["band_rev_layer"] == (DEPTH - 1) * forwards, counts)
+            check(counts["band_rev_bwd"] == (DEPTH - 1) * steps, counts)
+            check(counts["atom_readout"] == forwards, counts)
+            check(all(counts[k] == 0 for k in PLAIN_BAND_KERNELS), counts)
+            # the default band_precision "high": every layer on the tensor
+            # cores
+            tc = bm.tc_launch_counts()
+            check(tc == dict(dict.fromkeys(tc, 0),
+                             band_rev_layer=counts["band_rev_layer"]),
+                  f"tensor-core launches {tc}")
+            for k in launches:
+                launches[k] += counts[k]
+            for k in tc_launches:
+                tc_launches[k] += tc[k]
 
+            model_dir = os.path.join(cfg.save_dir, "fold_0", "model_0")
+            with open(os.path.join(model_dir,
+                                   "train_val_loss_log.csv")) as f:
+                rows = list(csv.DictReader(f))
+            losses = [float(r["train_loss"]) for r in rows]
+            check(len(rows) == epochs, rows)
+            check(all(np.isfinite(float(v))
+                      for r in rows for v in r.values()), rows)
+            check(np.isfinite(score), score)
+            log(f"[train] {name}, {featurizer} featurizer: train loss by "
+                f"epoch {losses}")
+            check(losses[-1] < losses[0], "the training loss did not fall")
+            with open(os.path.join(cfg.save_dir, "verbose.log")) as f:
+                rates = [float(x) for x in
+                         re.findall(r"([0-9.]+) steps/s", f.read())]
+            rates = rates[-epochs:]   # the log grows if the script reruns
+            check(len(rates) == epochs, rates)
+            for tag, rate in (("first epoch (featurizing)", rates[0]),
+                              ("last epoch (graphs cached)", rates[-1])):
+                log(f"[train] {name}, {featurizer} featurizer, {tag}: "
+                    f"{rate:.1f} steps/s, "
+                    f"{rate * n_train / batches(n_train):.1f} molecules/s "
+                    f"on {card}")
+
+            scores[featurizer] = score
+            run_counts[featurizer] = counts, tc
+        check(run_counts["C++"] == run_counts["Python"],
+              f"launches differ by featurizer: {run_counts}")
+        log(f"[train] {name}: test rmse C++ featurizer {scores['C++']:.6f}, "
+            f"Python {scores['Python']:.6f}")
+        np.testing.assert_allclose(scores["Python"], scores["C++"], rtol=1e-2)
+        cfg, score = config("cuda"), scores["C++"]
         model_dir = os.path.join(cfg.save_dir, "fold_0", "model_0")
-        with open(os.path.join(model_dir, "train_val_loss_log.csv")) as f:
-            rows = list(csv.DictReader(f))
-        losses = [float(r["train_loss"]) for r in rows]
-        check(len(rows) == epochs, rows)
-        check(all(np.isfinite(float(v)) for r in rows for v in r.values()),
-              rows)
-        check(np.isfinite(score), score)
-        log(f"[train] {name}: train loss by epoch {losses}")
-        check(losses[-1] < losses[0], "the training loss did not fall")
-        with open(os.path.join(cfg.save_dir, "verbose.log")) as f:
-            rates = [float(x) for x in
-                     re.findall(r"([0-9.]+) steps/s", f.read())]
-        rates = rates[-epochs:]       # the log grows if the script reruns
-        check(len(rates) == epochs, rates)
-        for tag, rate in (("first epoch (featurizing)", rates[0]),
-                          ("last epoch (graphs cached)", rates[-1])):
-            log(f"[train] {name} {tag}: {rate:.1f} steps/s, "
-                f"{rate * n_train / batches(n_train):.1f} molecules/s "
-                f"on {card}")
 
         # the same first step and the same whole run on the CPU
         got, want = first_step(cfg, "cuda"), first_step(config("cpu"), "cpu")
         log(f"[train] {name}: first step (loss, gnorm) gpu {got} cpu {want}")
         np.testing.assert_allclose(got, want, rtol=1e-4)
-        epoch_breakdown(name, cfg, card)
+        for featurizer, native in FEATURIZERS:
+            epoch_breakdown(f"{name}, {featurizer} featurizer,",
+                            config("cuda", native), card)
         cpu_score, _ = cross_validate(config("cpu"))
         log(f"[train] {name}: test rmse gpu {score:.6f} cpu {cpu_score:.6f}")
         np.testing.assert_allclose(score, cpu_score, rtol=1e-2)
@@ -1739,14 +1936,17 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_and_build()
     gb = bench_batch()
+    host_phase(gb, card)
     results, B, A = kernel_phase(dev, gb)
     launches, tc_launches = main_path(card)
+    fingerprint, fingerprint_tc = fingerprint_path(card)
     training, training_tc = training_path(card)
     plain_band, plain_band_tc = plain_band_path(card, dev)
-    for counts in (training, plain_band, probe_path(card, dev, gb, results)):
+    for counts in (fingerprint, training, plain_band,
+                   probe_path(card, dev, gb, results)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
-    for counts in (training_tc, plain_band_tc):
+    for counts in (fingerprint_tc, training_tc, plain_band_tc):
         for name, count in counts.items():
             tc_launches[name] += count
     check(all(count > 0 for count in launches.values()),

@@ -5,9 +5,14 @@ Usage:
         --dataset_type regression --save_dir ... [--device cuda|cpu]
     python -m polymer_chemprop_tpu_torch.cli predict --test_path ... \
         --checkpoint_dir ... --preds_path ... [--device cuda|cpu]
+    python -m polymer_chemprop_tpu_torch.cli fingerprint --test_path ... \
+        --checkpoint_dir ... --preds_path ... [--fingerprint_type MPN|last_FFN]
 
-Both run on the GPU (``--device cuda``, the default; without a GPU they
-raise) or, when asked, on the CPU with the kernels' plain PyTorch versions.
+All three run on the GPU (``--device cuda``, the default; without a GPU
+they raise) or, when asked, on the CPU with the kernels' plain PyTorch
+versions. Each featurizes with the C++ library of native_ext.py (built
+with g++ at first use); ``--no_use_native_featurizer`` takes the Python
+featurizer instead.
 The other subcommands of polymer_chemprop_tpu.cli are not on the port yet.
 """
 
@@ -29,6 +34,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     elif cmd == "predict":
         from .train.make_predictions import chemprop_predict
         chemprop_predict(rest)
+    elif cmd == "fingerprint":
+        from .train.molecule_fingerprint import chemprop_fingerprint
+        chemprop_fingerprint(rest)
     else:
         print(f"unknown command {cmd!r}\n{__doc__}")
         sys.exit(1)

@@ -149,8 +149,10 @@ class TrainConfig:
     # port reads param_dtype ("float32", or "bfloat16" / "bf16" for linear
     # layers with bfloat16 operands and float32 accumulation),
     # band_precision (the undirected layer's product: "high", "default" or
-    # "highest", models/encoder.py) and reference_init (None or True:
-    # replay the reference's torch init stream).
+    # "highest", models/encoder.py), reference_init (None or True:
+    # replay the reference's torch init stream) and use_native_featurizer
+    # (None = auto = the C++ featurizer of native_ext.py, bit for bit the
+    # Python path; --no_use_native_featurizer takes the Python path).
     num_devices: Optional[int] = None
     param_dtype: str = "float32"
     band_precision: str = "high"
@@ -273,6 +275,9 @@ class PredictConfig:
     # where the model runs: "cuda" (the default; raises without a GPU) or
     # "cpu" (the plain PyTorch versions of the kernels)
     device: str = "cuda"
+    # None = auto = the C++ featurizer (native_ext.py);
+    # --no_use_native_featurizer takes the Python path
+    use_native_featurizer: Optional[bool] = None
 
 
 def find_checkpoints(checkpoint_dir: Optional[str] = None,

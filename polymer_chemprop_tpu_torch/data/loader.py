@@ -1,12 +1,15 @@
 """Batch loader: dataset -> fixed-shape host arrays.
 
-The port's copy of polymer_chemprop_tpu data/loader.py without the native
-featurizer and the Pallas switches. Featurization is the pure-Python path
-(which the JAX package holds bit-identical to its C++ one), on a thread
-pool when there is more than one batch, and every batch carries the
-dst-sorted bond layout of ops/sorted_aux.py. Every emitted batch shares one
-padding envelope, sticky under reshuffling, so the kernels see one shape
-per run.
+The port's copy of polymer_chemprop_tpu data/loader.py without the extra
+feature inputs and the Pallas switches. By default each batch is
+featurized and packed by the C++ library of native_ext.py (standard,
+polymer and reaction configurations, with explicit or added hydrogens),
+which is bit for bit the pure-Python path (``features/``); ``use_native=
+False`` takes the Python path. Batches are made on a thread pool when
+there is more than one (a ctypes call releases the GIL), and every batch
+carries the dst-sorted bond layout of ops/sorted_aux.py. Every emitted
+batch shares one padding envelope, sticky under reshuffling, so the
+kernels see one shape per run.
 
 Sampling mirrors MoleculeSampler (reference data.py:537-591): seeded
 shuffle (``random.Random(seed)``, the same stream as the JAX package's
@@ -45,7 +48,7 @@ class MoleculeDataLoader:
     def __init__(self, dataset: MoleculeDataset, config: FeaturizationConfig,
                  batch_size: int = 50, shuffle: bool = False, seed: int = 0,
                  class_balance: bool = False, num_workers: int = 8,
-                 align: int = 256):
+                 align: int = 256, use_native: Optional[bool] = None):
         self.dataset = dataset
         self.config = config
         self.batch_size = batch_size
@@ -59,6 +62,14 @@ class MoleculeDataLoader:
         self._counts: Optional[List[tuple]] = None
         self.number_of_molecules = (len(dataset[0].smiles) if len(dataset)
                                     else 1)
+        # None = auto = the C++ featurizer: every configuration the port
+        # takes is native-eligible (the JAX loader's extra-feature
+        # branches are not needed while the port rejects feature files)
+        self.use_native = use_native is None or bool(use_native)
+        self._native_kw = dict(
+            polymer=config.polymer,
+            reaction_mode=config.reaction_mode if config.reaction else None,
+            keep_h=config.explicit_h, add_h=config.adding_h)
 
     # -- sampling (reference MoleculeSampler, data.py:537-591) --------------
     def _indices(self) -> List[int]:
@@ -92,7 +103,18 @@ class MoleculeDataLoader:
         """Pad sizes covering every batch under the current order. Sticky
         (monotone non-decreasing) and aligned, so a reshuffle almost always
         keeps the shape. Per-datapoint counts are computed once."""
-        if self._counts is None:
+        if self._counts is None and self.use_native:
+            from ..native_ext import count_native
+            a = np.zeros(len(self.dataset), np.int64)
+            b = np.zeros(len(self.dataset), np.int64)
+            for pos in range(self.number_of_molecules):
+                ap, bp = count_native([d.smiles[pos] for d in self.dataset],
+                                      n_threads=self.num_workers,
+                                      **self._native_kw)
+                a += np.maximum(ap, 0)      # -1 marks an invalid SMILES
+                b += np.maximum(bp, 0)
+            self._counts = list(zip(a.tolist(), b.tolist()))
+        elif self._counts is None:
             self._counts = []
             for d in self.dataset:
                 graphs = d.mol_graphs(self.config)
@@ -113,10 +135,18 @@ class MoleculeDataLoader:
         points = [self.dataset[i] for i in idxs]
         graph_arrays = []
         for pos in range(self.number_of_molecules):
-            graphs = [p.mol_graphs(self.config)[pos] for p in points]
-            gb = batch_graphs(graphs, pad_atoms=self._pad_atoms,
-                              pad_bonds=self._pad_bonds,
-                              pad_mols=self.batch_size)
+            if self.use_native:
+                from ..native_ext import featurize_batch_native
+                gb, _ = featurize_batch_native(
+                    [p.smiles[pos] for p in points],
+                    pad_atoms=self._pad_atoms, pad_bonds=self._pad_bonds,
+                    pad_mols=self.batch_size, n_threads=self.num_workers,
+                    **self._native_kw)
+            else:
+                graphs = [p.mol_graphs(self.config)[pos] for p in points]
+                gb = batch_graphs(graphs, pad_atoms=self._pad_atoms,
+                                  pad_bonds=self._pad_bonds,
+                                  pad_mols=self.batch_size)
             graph_arrays.append(gb.arrays(sorted_aux=True))
         M = self.batch_size
         num_tasks = len(points[0].targets) \

@@ -125,17 +125,39 @@ class MoleculeModel(nn.Module):
         training mode the FFN is dropout -> linear [-> act -> dropout ->
         linear]* (reference model.py:79-100), masks from ``generator``."""
         emb = self.encode(batches, generator)
-        bf16 = self.cfg.encoder.compute_dtype == "bfloat16"
-        h = emb
-        for i, layer in enumerate(self.ffn):
-            if i > 0:
-                h = self.act(h)
-            h = dropout(h, self.cfg.encoder.dropout, self.training, generator)
-            h = linear(layer, h, bf16)
+        h = self.apply_ffn(emb, generator)
         if self.cfg.dataset_type == "spectra":
             h = F.softplus(h) if self.cfg.spectra_activation == "softplus" \
                 else torch.exp(h)
         return (h, emb) if return_embeddings else h
+
+    def apply_ffn(self, h: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  truncate_last: bool = False) -> torch.Tensor:
+        """The FFN head; ``truncate_last`` stops before its last linear
+        layer (last_FFN fingerprints, reference model.py:146-148)."""
+        bf16 = self.cfg.encoder.compute_dtype == "bfloat16"
+        for i, layer in enumerate(self.ffn):
+            if i > 0:
+                h = self.act(h)
+            h = dropout(h, self.cfg.encoder.dropout, self.training, generator)
+            if truncate_last and i == len(self.ffn) - 1:
+                break
+            h = linear(layer, h, bf16)
+        return h
+
+    def fingerprint(self, batches: Sequence[Dict[str, torch.Tensor]],
+                    fingerprint_type: str = "MPN") -> torch.Tensor:
+        """Latent representations (reference model.py:123-150): the
+        encoders' output ("MPN") or the FFN's input to its last layer
+        ("last_FFN")."""
+        if fingerprint_type not in ("MPN", "last_FFN"):
+            raise ValueError(
+                f"Unsupported fingerprint type {fingerprint_type}.")
+        emb = self.encode(batches)
+        if fingerprint_type == "MPN":
+            return emb
+        return self.apply_ffn(emb, truncate_last=True)
 
 
 def postprocess_preds(preds: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -107,7 +107,8 @@ def make_predictions(args: PredictConfig,
 
     model_cfg = build_model_config(tcfg, num_tasks)
     loader = MoleculeDataLoader(test_data, fcfg, batch_size=args.batch_size,
-                                num_workers=args.num_workers)
+                                num_workers=args.num_workers,
+                                use_native=args.use_native_featurizer)
     model = MoleculeModel(model_cfg).to(device)
 
     sum_preds = sq_preds = sum_emb = None

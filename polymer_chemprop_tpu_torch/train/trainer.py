@@ -241,7 +241,8 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
 
     # loaders
     set_cache_graph(len(data) <= cfg.cache_cutoff and not cfg.no_cache_mol)
-    loader_kw = dict(batch_size=cfg.batch_size, num_workers=cfg.num_workers)
+    loader_kw = dict(batch_size=cfg.batch_size, num_workers=cfg.num_workers,
+                     use_native=cfg.use_native_featurizer)
     train_loader = MoleculeDataLoader(
         train_data, fcfg, shuffle=True, seed=cfg.seed,
         class_balance=cfg.class_balance, **loader_kw)

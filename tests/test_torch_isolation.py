@@ -40,7 +40,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "kernels.build", "ops.sorted_aux", "models.encoder",
                  "models.nn", "ops.probe_kernels", "probes.timing",
                  "probes.bench_batch", "probes.band_layer_probe",
-                 "probes.fused_matmul_probe"):
+                 "probes.fused_matmul_probe", "native_ext",
+                 "train.molecule_fingerprint"):
         assert f"polymer_chemprop_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
