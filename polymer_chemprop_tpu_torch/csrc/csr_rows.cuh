@@ -13,6 +13,8 @@
 //   kInStore (their VJPs, band_bwd.cu, band_rev_bwd.cu):
 //     acc = 0; for c in run(v): acc = acc + x_c     (= fmaf(1, x_c, acc))
 //     out[c] = fmaf(w[c], acc, -x_c)
+//   kUnit (atom_readout.cu's gather entry with unit weights): kInStore's
+//     sum with w never read
 //
 // in CSR order from 0, which is the order of every z build in the port
 // (band_rev_layer.cu, band_matmul.cu): the forward outputs equal those
@@ -55,7 +57,7 @@ constexpr int THREADS = 128;
 // group (PERF.md §6)
 constexpr int UNROLL = 4;
 
-enum Weights { kInSum, kInStore };
+enum Weights { kInSum, kInStore, kUnit };
 
 // the input row of run element c: c itself ...
 struct Direct {
@@ -136,7 +138,7 @@ __device__ __forceinline__ void run_sum(const float* __restrict__ m,
 #pragma unroll
   for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
   for (int base = c0; base < c1; base += UNROLL) {
-    load_weights(w, base, c1, wc);
+    if constexpr (WT != kUnit) load_weights(w, base, c1, wc);
     load_group<VEC>(m, H, col, base, c1, x, rows);
 #pragma unroll
     for (int r = 0; r < UNROLL; ++r)

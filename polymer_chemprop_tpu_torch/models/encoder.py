@@ -13,7 +13,24 @@ MPNEncoder (reference mpn.py:14-173):
 * molecule readout: stoichiometry-weighted aggregation scaled by
   1+log10(Xn) (mpn.py:145-171)
 
-Two branches, chosen by the batch:
+With ``atom_messages`` the messages live on atoms (reference
+mpn.py:93-108, the JAX package's encoder.py:121-187): ``inputs =
+W_i(f_atoms)``; W_h takes ``(H + bond_fdim)`` inputs, and its bond-feature
+half acts on the loop-invariant ``f_sum[v]``, the sum of the bond features
+(without the source atom's) of v's incoming bonds, once before the loop
+with W_h's bias (``const``); each of the ``depth - 1`` layers is
+``act(inputs + W_h[:, :H](N message) + const)`` with N the neighbour sum;
+the readout weights every incoming bond by its own weight,
+``a[v] = sum_{c: dst c = v} w[c] message[src c]``. That weighting is the
+JAX package's deliberate departure from the reference, which indexes the
+bond weights by neighbour atom ids (docs/parity.md). With ``"sorted_aux"``
+the neighbour sum and the readout are :func:`~..ops.band_mpnn.
+atom_neighbor_sum_sorted` and :func:`~..ops.band_mpnn.src_readout_sorted`
+(one kernel, FP32 sums at either compute dtype); without it, segment sums
+over ``b2a`` / ``b2dst``. ``f_sum`` is a segment sum on both branches, as
+in the JAX package.
+
+For bond messages there are two branches, chosen by the batch:
 
 * with ``"sorted_aux"`` (the loader's default), messages stay in dst-sorted
   bond order, each layer runs in one of three forms (below), and one
@@ -70,15 +87,23 @@ from torch import nn
 
 from ..ops.band_mpnn import atom_readout as atom_readout_sorted
 from ..ops.band_mpnn import (
+    atom_neighbor_sum_sorted,
     band_matmul_act_step_sorted,
     band_message_step_sorted,
     band_rev_layer,
     check_precision,
     fused_layer_fits,
     permute_rows,
+    src_readout_sorted,
 )
-from ..ops.segment import atom_readout, bond_message_step, molecule_readout
-from .nn import dropout, get_activation, linear
+from ..ops.segment import (
+    atom_readout,
+    bond_message_step,
+    molecule_readout,
+    segment_sum,
+    weighted_segment_sum,
+)
+from .nn import dense, dropout, get_activation, linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,25 +130,23 @@ class EncoderConfig:
         check_precision(self.band_precision)
 
     def check_supported(self) -> None:
-        """Raise for the configurations the JAX package sends to kernels the
-        port does not have yet (see ROADMAP.md)."""
+        """Raise for the configurations the JAX package refuses, and for
+        those it sends to modules the port does not have yet (see
+        ROADMAP.md)."""
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}: expected "
                              "'float32' or 'bfloat16'")
-        missing = []
-        if self.atom_messages:
-            missing.append("atom_messages (needs the gather-then-readout "
-                           "kernel, pallas_mpnn.py:1455-1538)")
+        if self.atom_messages and self.undirected:
+            raise ValueError("Undirected is unnecessary when using "
+                             "atom_messages (reference args.py:588-590)")
         if self.atom_descriptors is not None:
-            missing.append("atom_descriptors")
-        if missing:
-            raise NotImplementedError(
-                "not on the port yet: " + "; ".join(missing))
+            raise NotImplementedError("not on the port yet: atom_descriptors")
 
     def layer_form(self) -> str:
         """``"rev"``, ``"matmul_act"`` or ``"plain"``: the depth-loop layer
-        of the sorted branch (module docstring), from the shape and the
-        options alone."""
+        of the sorted bond-message branch (module docstring), from the shape
+        and the options alone. It does not apply to ``atom_messages``,
+        whose layer is the neighbour sum at every setting."""
         fused = (not self.bias and self.compute_dtype == "float32"
                  and fused_layer_fits(self.hidden_size))
         if not fused:
@@ -132,17 +155,20 @@ class EncoderConfig:
 
 
 class MPNEncoder(nn.Module):
-    """One bond-message encoder (reference mpn.py:46-64): W_i and W_h with
-    a bias only when ``cfg.bias``, W_o always with one. Weights use torch's
-    (out, in) layout."""
+    """One message-passing encoder (reference mpn.py:46-64): W_i and W_h
+    with a bias only when ``cfg.bias``, W_o always with one. Weights use
+    torch's (out, in) layout. With ``atom_messages`` W_i takes the atom
+    features and W_h ``H + bond_fdim`` inputs (JAX encoder.py:74-75)."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         cfg.check_supported()
         self.cfg = cfg
         H = cfg.hidden_size
-        self.W_i = nn.Linear(cfg.bond_fdim, H, bias=cfg.bias)
-        self.W_h = nn.Linear(H, H, bias=cfg.bias)
+        extra = cfg.bond_fdim if cfg.atom_messages else 0
+        self.W_i = nn.Linear(cfg.atom_fdim if cfg.atom_messages
+                             else cfg.bond_fdim, H, bias=cfg.bias)
+        self.W_h = nn.Linear(H + extra, H, bias=cfg.bias)
         self.W_o = nn.Linear(cfg.atom_fdim + H, H, bias=True)
         self.act_name = cfg.activation.lower()
         self.act = get_activation(self.act_name)
@@ -158,7 +184,24 @@ class MPNEncoder(nn.Module):
 
         bf16 = cfg.compute_dtype == "bfloat16"
         f_atoms = batch["f_atoms"]
-        num_atoms = f_atoms.shape[0]
+        if cfg.atom_messages:
+            a_message = self._atom_messages(batch, drop, bf16)
+        else:
+            a_message = self._bond_messages(batch, drop, bf16)
+        atom_hiddens = drop(self.act(
+            linear(self.W_o, torch.cat([f_atoms, a_message], 1), bf16)))
+        return molecule_readout(atom_hiddens, batch["w_atoms"],
+                                batch["a2mol"],
+                                batch["degree_of_polym"].shape[0],
+                                batch["degree_of_polym"],
+                                aggregation=cfg.aggregation,
+                                aggregation_norm=cfg.aggregation_norm)
+
+    def _bond_messages(self, batch, drop, bf16: bool) -> torch.Tensor:
+        """The bond-message depth loop and readout (module docstring) ->
+        a_message (A, H)."""
+        cfg = self.cfg
+        num_atoms = batch["f_atoms"].shape[0]
         inputs = linear(self.W_i, batch["f_bonds"], bf16)
         message = self.act(inputs)
         aux = batch.get("sorted_aux")
@@ -189,27 +232,48 @@ class MPNEncoder(nn.Module):
                     message = band_message_step_sorted(message, aux)
                     message = self.act(inputs + linear(self.W_h, message, bf16))
                 message = drop(message)
-            a_message = atom_readout_sorted(message, aux["w_sorted"],
-                                            aux["rowptr"], aux["dst_sorted"])
-        else:
-            w_bonds, b2dst = batch["w_bonds"], batch["b2dst"]
-            for _ in range(cfg.depth - 1):
-                if cfg.undirected:
-                    message = (message + message[batch["b2revb"]]) / 2
-                message = bond_message_step(message, w_bonds, batch["b2a"],
-                                            b2dst, batch["b2revb"], num_atoms)
-                # layer-0 residual (mpn.py:123)
-                message = drop(self.act(
-                    inputs + linear(self.W_h, message, bf16)))
-            a_message = atom_readout(message, w_bonds, b2dst, num_atoms)
-        atom_hiddens = drop(self.act(
-            linear(self.W_o, torch.cat([f_atoms, a_message], 1), bf16)))
-        return molecule_readout(atom_hiddens, batch["w_atoms"],
-                                batch["a2mol"],
-                                batch["degree_of_polym"].shape[0],
-                                batch["degree_of_polym"],
-                                aggregation=cfg.aggregation,
-                                aggregation_norm=cfg.aggregation_norm)
+            return atom_readout_sorted(message, aux["w_sorted"],
+                                       aux["rowptr"], aux["dst_sorted"])
+        w_bonds, b2dst = batch["w_bonds"], batch["b2dst"]
+        for _ in range(cfg.depth - 1):
+            if cfg.undirected:
+                message = (message + message[batch["b2revb"]]) / 2
+            message = bond_message_step(message, w_bonds, batch["b2a"],
+                                        b2dst, batch["b2revb"], num_atoms)
+            # layer-0 residual (mpn.py:123)
+            message = drop(self.act(
+                inputs + linear(self.W_h, message, bf16)))
+        return atom_readout(message, w_bonds, b2dst, num_atoms)
+
+    def _atom_messages(self, batch, drop, bf16: bool) -> torch.Tensor:
+        """The atom-message depth loop and readout (module docstring; JAX
+        encoder.py:121-187) -> a_message (A, H)."""
+        cfg = self.cfg
+        H = cfg.hidden_size
+        num_atoms = batch["f_atoms"].shape[0]
+        aux = batch.get("sorted_aux")
+        # the bond features without the source atom's (reference
+        # featurization.py:838-843)
+        f_bonds = batch["f_bonds"][:, -cfg.bond_fdim:]
+        # f_bonds arrive dst-sorted with the aux
+        dst = batch["b2dst"] if aux is None else aux["dst_sorted"]
+        f_sum = segment_sum(f_bonds, dst, num_atoms)
+        w_h = self.W_h.weight
+        const = dense(f_sum, w_h[:, H:], self.W_h.bias, bf16)
+        inputs = linear(self.W_i, batch["f_atoms"], bf16)
+        message = self.act(inputs)
+        for _ in range(cfg.depth - 1):
+            if aux is not None:
+                m = atom_neighbor_sum_sorted(message, aux)
+            else:
+                m = segment_sum(message[batch["b2a"]], batch["b2dst"],
+                                num_atoms)
+            message = drop(self.act(inputs + dense(m, w_h[:, :H], None, bf16)
+                                    + const))
+        if aux is not None:
+            return src_readout_sorted(message, aux)
+        return weighted_segment_sum(message[batch["b2a"]], batch["w_bonds"],
+                                    batch["b2dst"], num_atoms)
 
 
 # index arrays the kernels read as int32; the rest index with int64

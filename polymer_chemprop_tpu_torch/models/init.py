@@ -40,9 +40,13 @@ def _skeleton_shapes(cfg: ModelConfig) -> List[Tuple[int, int, bool]]:
     also the registration order of :class:`MoleculeModel`."""
     e = cfg.encoder
     shapes: List[Tuple[int, int, bool]] = []
+    # atom_messages: W_i on the atom features, W_h on the messages and the
+    # bond features (polymer_chemprop_tpu models/torch_init.py:45-46)
+    input_dim = e.atom_fdim if e.atom_messages else e.bond_fdim
+    w_h_input = e.hidden_size + (e.bond_fdim if e.atom_messages else 0)
     for _ in range(1 if cfg.mpn_shared else cfg.number_of_molecules):
-        shapes.append((e.bond_fdim, e.hidden_size, e.bias))
-        shapes.append((e.hidden_size, e.hidden_size, e.bias))
+        shapes.append((input_dim, e.hidden_size, e.bias))
+        shapes.append((w_h_input, e.hidden_size, e.bias))
         shapes.append((e.atom_fdim + e.hidden_size, e.hidden_size, True))
     shapes += [(i, o, True) for i, o in ffn_dims(cfg)]
     return shapes

@@ -31,8 +31,17 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 def linear(layer: torch.nn.Linear, x: torch.Tensor,
            bf16: bool = False) -> torch.Tensor:
-    """Dense layer ``x @ W^T + b``. With ``bf16`` it has the meaning of the
-    JAX package's mixed-precision ``linear`` (models/nn.py:52-65): input and
+    """Dense layer ``x @ W^T + b``: :func:`dense` with the layer's weight
+    and bias."""
+    return dense(x, layer.weight, layer.bias, bf16)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None,
+          bf16: bool = False) -> torch.Tensor:
+    """``x @ weight^T + bias`` for a weight in torch's (out, in) layout (or
+    a column slice of one). With ``bf16`` it has the meaning of the JAX
+    package's mixed-precision ``linear`` (models/nn.py:52-65): input and
     weight are rounded to bfloat16, the product is accumulated and returned
     in float32, and the bias is added in float32. Parameters stay float32.
 
@@ -41,10 +50,9 @@ def linear(layer: torch.nn.Linear, x: torch.Tensor,
     round its result to bfloat16 as well). Autograd through the two casts
     rounds the operands' gradients to bfloat16, as jax.grad does."""
     if not bf16:
-        return layer(x)
-    y = x.to(torch.bfloat16).float() @ \
-        layer.weight.to(torch.bfloat16).float().t()
-    return y if layer.bias is None else y + layer.bias
+        return F.linear(x, weight, bias)
+    y = x.to(torch.bfloat16).float() @ weight.to(torch.bfloat16).float().t()
+    return y if bias is None else y + bias
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,

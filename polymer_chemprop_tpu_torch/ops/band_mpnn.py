@@ -25,10 +25,20 @@
   replaces ``_band_matmul_kernel``). Differentiable in ``m``, ``W_h`` and
   ``inp_srev``.
 
+* :func:`atom_neighbor_sum_sorted`: ``out[v] = sum_{c in run(v)} h[src c]``
+  and :func:`src_readout_sorted`: ``a[v] = sum_{c in run(v)} w[c] h[src c]``
+  over an (A, H) atom table ``h``, the ``atom_messages`` encoder's layer
+  sum and readout: the gather entry of csrc/atom_readout.cu
+  (``atom_gather_readout_f32``; the JAX package composes the gather
+  ``h[src_sorted]`` with ``_atom_band_kernel``), which never writes the
+  gathered (B, H) rows. Differentiable in ``h``, each VJP on the same
+  kernel.
+
 * :func:`band_message_step_sorted`, :func:`band_matmul_step_sorted` and
   :func:`band_matmul_act_step_sorted`: the JAX package's public ops of the
   same names, each one of the above followed by the ``srev`` row gather
-  :func:`permute_rows`, which stays outside the kernels.
+  :func:`permute_rows`, which stays outside the kernels;
+  :func:`bond_message_step_natural` the first in natural bond order.
 
 The three W_h-fused kernels (:func:`band_rev_layer`,
 :func:`band_matmul_act`, :func:`band_matmul`) take a ``precision``, the JAX
@@ -39,7 +49,8 @@ product ``z_hi W_hi + z_hi W_lo + z_lo W_hi`` and ``"default"``
 csrc/band_tile_sm90.cuh); :func:`split_matmul` is their plain product. z
 is the FP32 aggregation at every precision, and the backward is FP32 at
 every precision. The bandwidth kernels (:func:`band_rev_bwd`,
-:func:`atom_readout`, :func:`band_agg`, :func:`band_bwd`) are FP32.
+:func:`atom_readout`, :func:`band_agg`, :func:`band_bwd` and the gather
+entry) are FP32.
 
 :func:`atom_readout` and :func:`band_agg` read the runs through
 csrc/csr_rows.cuh, one thread per (atom, column chunk).
@@ -55,8 +66,9 @@ the three W_h-fused ones count their tensor-core launches once more in
 
 The gradients are hand-written ``torch.autograd.Function``s that mirror the
 JAX package's ``custom_vjp``s (pallas_mpnn.py:664-676, 806-829, 966-986,
-1251-1274, 1378-1395) and run the same formulas on both devices: on CPU
-tensors only the kernels are replaced by their plain versions.
+1251-1274, 1378-1395, 1455-1525) and run the same formulas on both
+devices: on CPU tensors only the kernels are replaced by their plain
+versions.
 """
 
 from __future__ import annotations
@@ -204,6 +216,27 @@ def atom_readout_plain(m: torch.Tensor, w_sorted: torch.Tensor,
     n = int(rowptr[-1])
     out = m.new_zeros((A, m.shape[1]))
     return out.index_add_(0, _csr_rows(rowptr), m[:n] * w_sorted[:n, None])
+
+
+def atom_neighbor_sum_plain(h: torch.Tensor, src_sorted: torch.Tensor,
+                            rowptr: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`atom_neighbor_sum_sorted`, with
+    ``index_add_``."""
+    A = rowptr.shape[0] - 1
+    n = int(rowptr[-1])
+    out = h.new_zeros((A, h.shape[1]))
+    return out.index_add_(0, _csr_rows(rowptr), h[src_sorted[:n].long()])
+
+
+def src_readout_plain(h: torch.Tensor, w_sorted: torch.Tensor,
+                      src_sorted: torch.Tensor, rowptr: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain version of :func:`src_readout_sorted`, with ``index_add_``."""
+    A = rowptr.shape[0] - 1
+    n = int(rowptr[-1])
+    out = h.new_zeros((A, h.shape[1]))
+    return out.index_add_(0, _csr_rows(rowptr),
+                          h[src_sorted[:n].long()] * w_sorted[:n, None])
 
 
 def band_rev_z_plain(m: torch.Tensor, w_sorted: torch.Tensor,
@@ -418,6 +451,50 @@ def _atom_readout_forward(m: torch.Tensor, w_sorted: torch.Tensor,
     return out
 
 
+def _atom_gather_launch(kernel: str, h: torch.Tensor, idx: torch.Tensor,
+                        w: Optional[torch.Tensor], rowptr: torch.Tensor
+                        ) -> torch.Tensor:
+    """Checks, allocation and launch of csrc/atom_readout.cu's gather entry
+    ``atom_gather_readout_f32``: ``out[v] = sum_{c in run(v)} w[c]
+    h[idx[c]]`` for an (A, H) table ``h``; ``w`` None means unit weights
+    (never read)."""
+    if h.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {h.device}")
+    A = rowptr.shape[0] - 1
+    B, H = idx.shape[0], h.shape[1]
+    dev = h.device
+    _check("h", h, (A, H), torch.float32, dev)
+    _check("src_sorted", idx, (B,), torch.int32, dev)
+    if w is not None:
+        _check("w", w, (B,), torch.float32, dev)
+    _check("rowptr", rowptr, (A + 1,), torch.int32, dev)
+    from ..kernels.build import load
+    lib = load("atom_readout")
+    out = h.new_empty((A, H))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.atom_gather_readout_f32(
+            h.data_ptr(), idx.data_ptr(), None if w is None else w.data_ptr(),
+            rowptr.data_ptr(), out.data_ptr(), A, H, stream)
+    _raise_on(err, kernel)
+    return out
+
+
+def _atom_gather_forward(wrapper, h: torch.Tensor,
+                         w: Optional[torch.Tensor], src_sorted: torch.Tensor,
+                         rowptr: torch.Tensor) -> torch.Tensor:
+    """The sum of ``wrapper`` (:func:`atom_neighbor_sum_sorted` with ``w``
+    None, :func:`src_readout_sorted`): its plain version on CPU tensors,
+    else one launch counted in ``wrapper.launches``."""
+    if h.device.type == "cpu":
+        if w is None:
+            return atom_neighbor_sum_plain(h, src_sorted, rowptr)
+        return src_readout_plain(h, w, src_sorted, rowptr)
+    out = _atom_gather_launch(wrapper.__name__, h, src_sorted, w, rowptr)
+    wrapper.launches += 1
+    return out
+
+
 def _band_rows_launch(kernel: str, x: torch.Tensor, w_sorted: torch.Tensor,
                       rowptr: torch.Tensor) -> torch.Tensor:
     """Checks, allocation and launch shared by csrc/band_agg.cu and
@@ -617,6 +694,44 @@ class _AtomReadoutFn(torch.autograd.Function):
         return w_sorted[:, None] * g[dst_sorted.long()], None, None, None
 
 
+class _AtomNeighborSumFn(torch.autograd.Function):
+    """``out = N h`` with N the atom adjacency counted by bonds, which is
+    symmetric: the VJP is the same sum of the cotangent, ``dh = N g``, on
+    the same kernel (pallas_mpnn.py:1455-1482)."""
+
+    @staticmethod
+    def forward(ctx, h, src_sorted, rowptr):
+        ctx.save_for_backward(src_sorted, rowptr)
+        return _atom_gather_forward(atom_neighbor_sum_sorted, h, None,
+                                    src_sorted, rowptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        src_sorted, rowptr = ctx.saved_tensors
+        return _atom_gather_forward(atom_neighbor_sum_sorted, g.contiguous(),
+                                    None, src_sorted, rowptr), None, None
+
+
+class _SrcReadoutFn(torch.autograd.Function):
+    """``a[v] = sum_{c: dst c = v} w[c] h[src c]`` with the VJP of
+    pallas_mpnn.py ``_src_readout_op``: since ``src c = dst(srev c)``,
+    ``dh[u] = sum_{c': dst c' = u} w[srev c'] g[src c']``, the same kernel
+    with the weights ``w[srev]``, gathered once in the backward."""
+
+    @staticmethod
+    def forward(ctx, h, w_sorted, src_sorted, srev, rowptr):
+        ctx.save_for_backward(w_sorted, src_sorted, srev, rowptr)
+        return _atom_gather_forward(src_readout_sorted, h, w_sorted,
+                                    src_sorted, rowptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_sorted, src_sorted, srev, rowptr = ctx.saved_tensors
+        dh = _atom_gather_forward(src_readout_sorted, g.contiguous(),
+                                  w_sorted[srev.long()], src_sorted, rowptr)
+        return dh, None, None, None, None
+
+
 class _BandAggFn(torch.autograd.Function):
     """``z = S m - m`` with the VJP of ``_band_op``: ``dm = band_bwd(g)``."""
 
@@ -803,8 +918,45 @@ def band_matmul_act_step_sorted(m: torch.Tensor, wh: torch.Tensor,
     return permute_rows(out, aux["srev"], aux["srev"])
 
 
+def bond_message_step_natural(m: torch.Tensor,
+                              aux: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """:func:`band_message_step_sorted` on messages in natural bond order:
+    the drop-in for :func:`..ops.segment.bond_message_step` and the
+    counterpart of pallas_mpnn.py ``bond_message_step_pallas``. The rows
+    are permuted into dst-sorted order by ``aux["perm"]`` and back by its
+    inverse. Real rows equal ``bond_message_step``'s; a padding row comes
+    out as minus its own message (there: minus bond 0's)."""
+    perm = aux["perm"]
+    rank = torch.empty_like(perm)
+    rank[perm.long()] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                                     device=perm.device)
+    out = band_message_step_sorted(permute_rows(m, perm, rank), aux)
+    return permute_rows(out, rank, perm)
+
+
+def atom_neighbor_sum_sorted(h: torch.Tensor,
+                             aux: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The unweighted neighbour sum over atoms, counting bond multiplicity:
+    ``out[v] = sum_{c in run(v)} h[src c]``, (A, H) -> (A, H), for the
+    ``atom_messages`` layer (pallas_mpnn.py:1485). ``aux`` holds the
+    batch's ``src_sorted`` and ``rowptr`` (:mod:`.sorted_aux`); h f32.
+    Atom 0 (padding) has an empty run and reads 0."""
+    return _AtomNeighborSumFn.apply(h, aux["src_sorted"], aux["rowptr"])
+
+
+def src_readout_sorted(h: torch.Tensor,
+                       aux: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The ``atom_messages`` readout, each incoming bond weighted by its own
+    weight: ``a[v] = sum_{c in run(v)} w[c] h[src c]``, (A, H) -> (A, H)
+    (pallas_mpnn.py:1528). ``aux`` holds ``w_sorted``, ``src_sorted``,
+    ``srev`` (read by the gradient) and ``rowptr``."""
+    return _SrcReadoutFn.apply(h, aux["w_sorted"], aux["src_sorted"],
+                               aux["srev"], aux["rowptr"])
+
+
 WRAPPERS = (band_rev_layer, band_rev_bwd, atom_readout, band_agg, band_bwd,
-            band_matmul_act, band_matmul)
+            band_matmul_act, band_matmul, atom_neighbor_sum_sorted,
+            src_readout_sorted)
 TC_WRAPPERS = (band_rev_layer, band_matmul_act, band_matmul)
 
 

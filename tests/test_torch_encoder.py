@@ -181,10 +181,18 @@ def test_shared_encoder_round_trip():
 def test_unported_encoder_configs_raise(field):
     """What is not ported raises; what has been ported since (the
     plain-band options ``undirected``, ``bias`` and bfloat16 compute) builds
-    and takes the layer form its configuration implies."""
+    and takes the layer form its configuration implies, and
+    ``atom_messages`` builds W_i on the atom features and W_h on the
+    messages and the bond features."""
     value = {"compute_dtype": "bfloat16",
              "atom_descriptors": "descriptor"}.get(field, True)
     cfg = EncoderConfig(atom_fdim=133, bond_fdim=147, **{field: value})
+    if field == "atom_messages":
+        enc = MoleculeModel(ModelConfig(encoder=cfg)).encoders[0]
+        assert enc.W_i.in_features == 133
+        assert enc.W_h.in_features == cfg.hidden_size + 147
+        assert enc.W_h.out_features == cfg.hidden_size
+        return
     forms = {"undirected": "matmul_act", "bias": "plain",
              "compute_dtype": "plain"}
     if field in forms:

@@ -110,8 +110,10 @@ def test_fingerprint_matches_jax(tmp_path, fp_type, n_models):
     assert rows[4] == ["not_a_smiles(("] + ["Invalid SMILES"] * width * n_models
 
 
-def test_fingerprint_polymer_python_featurizer_matches_jax(tmp_path):
-    """A polymer checkpoint, the port on its Python featurizer."""
+@pytest.mark.parametrize("native", [False, None], ids=["python", "cxx"])
+def test_fingerprint_polymer_python_featurizer_matches_jax(tmp_path, native):
+    """A polymer checkpoint, the port on its Python featurizer and on its
+    default (C++) one."""
     mons = ["[*:1]CC[*:2]", "[*:1]c1ccc([*:2])cc1", "[*:1]CO[*:2]"]
     rows = [f'"{a}.{b.replace("[*:1]", "[*:3]").replace("[*:2]", "[*:4]")}'
             f'|0.25|0.75|<1-3:0.5:0.5<2-4:0.5:0.5~{10 + i}"'
@@ -120,7 +122,20 @@ def test_fingerprint_polymer_python_featurizer_matches_jax(tmp_path):
     path.write_text("smiles\n" + "\n".join(rows) + "\n")
     ckpt_dir = _write_ckpts(tmp_path, 1, polymer=True)
     got, want, paths = _both(tmp_path, str(path), ckpt_dir, "last_FFN",
-                             use_native_featurizer=False)
+                             use_native_featurizer=native)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+    _assert_csv_close(paths["torch"], paths["jax"])
+
+
+@pytest.mark.parametrize("fp_type", ["MPN", "last_FFN"])
+def test_fingerprint_atom_messages_matches_jax(tmp_path, fp_type):
+    """An ``atom_messages`` checkpoint with bias (W_h of hidden + 14 bond
+    features in)."""
+    test_path = _test_csv(tmp_path, invalid=True)
+    ckpt_dir = _write_ckpts(tmp_path, 1, atom_messages=True, bias=True)
+    got, want, paths = _both(tmp_path, test_path, ckpt_dir, fp_type)
+    assert got.shape == want.shape == (28, 64 if fp_type == "MPN" else 48)
+    assert np.abs(want).max() > 0
     np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
     _assert_csv_close(paths["torch"], paths["jax"])
 

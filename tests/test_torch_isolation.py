@@ -139,17 +139,24 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     w = torch.zeros(4, device="meta")
     rowptr = torch.zeros(3, dtype=torch.int32, device="meta")
     wh = torch.zeros((8, 8), device="meta")
+    # and the two atom_messages ops on the gather entry
+    aux = {"w_sorted": w, "rowptr": rowptr, "srev": rowptr[:1].expand(4),
+           "src_sorted": torch.zeros(4, dtype=torch.int32, device="meta")}
+    h = torch.zeros((2, 8), device="meta")
     for call in (lambda: band_mpnn.band_agg(m, w, rowptr),
                  lambda: band_mpnn.band_bwd(m, w, rowptr),
                  lambda: band_mpnn.band_matmul_act(m, m, wh, w, rowptr,
                                                    "relu"),
-                 lambda: band_mpnn.band_matmul(m, wh, w, rowptr)):
+                 lambda: band_mpnn.band_matmul(m, wh, w, rowptr),
+                 lambda: band_mpnn.atom_neighbor_sum_sorted(h, aux),
+                 lambda: band_mpnn.src_readout_sorted(h, aux)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
     assert band_mpnn.launch_counts() == dict.fromkeys(
         ("band_rev_layer", "band_rev_bwd", "atom_readout", "band_agg",
-         "band_bwd", "band_matmul_act", "band_matmul"), 0)
-    # the probes' two wrappers count apart from the encoder's seven
+         "band_bwd", "band_matmul_act", "band_matmul",
+         "atom_neighbor_sum_sorted", "src_readout_sorted"), 0)
+    # the probes' two wrappers count apart from the encoder's nine
     from polymer_chemprop_tpu_torch.ops import probe_kernels
     with pytest.raises(ValueError, match="unsupported device"):
         probe_kernels.band_ctrl(m, m, wh, w, rowptr[:1], rowptr[:1], "noq")

@@ -890,3 +890,122 @@ def test_fused_matmul_scratch_matches_the_library(cuda):
                  (64, 304), (65, 305)):
         assert lib.fused_matmul_scratch_bytes(K, M) \
             == probe_kernels.fused_matmul_scratch_bytes(K, M)
+
+
+# -- the gather entry of atom_readout.cu (atom_messages) ----------------------
+
+GATHER_OPS = ["atom_neighbor_sum", "src_readout"]
+
+
+def _atom_table(kind, H, dev):
+    """An (A, H) table, an (A, H) cotangent and the batch's index tensors."""
+    _, _, _, a, n_real = _batch(kind, 4, dev)
+    A = a["rowptr"].shape[0] - 1
+    gen = torch.Generator(dev).manual_seed(5)
+    h, g = (torch.randn((A, H), device=dev, generator=gen) for _ in range(2))
+    return h, g, a, n_real
+
+
+def _gather_op(op, h, a):
+    """(wrapper, plain version, composed form) of ``op`` on h: the
+    composed form is the gather h[src_sorted] then atom_readout, what the
+    JAX package computes."""
+    w = (torch.ones_like(a["w_sorted"]) if op == "atom_neighbor_sum"
+         else a["w_sorted"])
+    src, rp = a["src_sorted"], a["rowptr"]
+    wrapper = getattr(band_mpnn, f"{op}_sorted")
+    plain = (band_mpnn.atom_neighbor_sum_plain(h, src, rp)
+             if op == "atom_neighbor_sum"
+             else band_mpnn.src_readout_plain(h, w, src, rp))
+    composed = band_mpnn.atom_readout(h.index_select(0, src.long()), w, rp)
+    return wrapper(h, a), plain, composed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", GATHER_OPS)
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [4, 37, 300, 333, 1600])
+def test_atom_gather_matches_plain_and_composed(cuda, op, kind, H):
+    """Against the plain version (kernel tolerance) and the composed form
+    (bit for bit: the same fmaf chain over the same rows), one launch
+    counted, atom 0 exactly 0; H = 37 and 333 take one float a thread."""
+    h, _, a, _ = _atom_table(kind, H, cuda)
+    wrapper = getattr(band_mpnn, f"{op}_sorted")
+    before = wrapper.launches
+    got, plain, composed = _gather_op(op, h, a)
+    assert wrapper.launches == before + 1
+    _close(got, plain)
+    assert torch.equal(got, composed)
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", GATHER_OPS)
+@pytest.mark.parametrize("kind", ["molecules", "polymer"])
+@pytest.mark.parametrize("H", [37, 300])
+def test_atom_gather_vjps_match_autograd_through_plain(cuda, op, kind, H):
+    """The Functions' VJPs (the same kernel: the neighbour sum of g, the
+    readout of g with w[srev]) against autograd through the plain
+    versions; each backward is one more launch of the same wrapper."""
+    h, g, a, _ = _atom_table(kind, H, cuda)
+    wrapper = getattr(band_mpnn, f"{op}_sorted")
+
+    def vjp(fn):
+        x = h.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(x), x, g)[0]
+
+    before = wrapper.launches
+    got = vjp(lambda x: wrapper(x, a))
+    assert wrapper.launches == before + 2
+    src, rp = a["src_sorted"], a["rowptr"]
+    want = vjp(lambda x: band_mpnn.atom_neighbor_sum_plain(x, src, rp)
+               if op == "atom_neighbor_sum"
+               else band_mpnn.src_readout_plain(x, a["w_sorted"], src, rp))
+    _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", GATHER_OPS)
+def test_atom_gather_one_float_on_misaligned_rows(cuda, op):
+    """h as a view 4 bytes past a 16-byte boundary: the one-float path,
+    bit for bit the aligned result."""
+    h, _, a, _ = _atom_table("polymer", 300, cuda)
+    flat = torch.empty(h.numel() + 1, device=cuda)
+    view = flat[1:].view(h.shape)
+    view.copy_(h)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    wrapper = getattr(band_mpnn, f"{op}_sorted")
+    got = wrapper(view, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, wrapper(h, a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [4, 37, 300])
+def test_atom_gather_on_runs_up_to_40(cuda, H):
+    """The readout over the synthetic CSR of runs 0..40 rows with random
+    source atoms and fractional weights: plain version and composed form."""
+    m, w, rp, _, n_real = _long_runs(H, cuda)
+    A = rp.shape[0] - 1
+    gen = torch.Generator(cuda).manual_seed(6)
+    src = torch.randint(1, A, (m.shape[0],), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    h = m[:A].contiguous()
+    aux = {"src_sorted": src, "w_sorted": w, "rowptr": rp,
+           "srev": torch.arange(m.shape[0], device=cuda, dtype=torch.int32)}
+    got = band_mpnn.src_readout_sorted(h, aux)
+    _close(got, band_mpnn.src_readout_plain(h, w, src, rp))
+    assert torch.equal(got, band_mpnn.atom_readout(
+        h.index_select(0, src.long()), w, rp))
+
+
+@pytest.mark.gpu
+def test_atom_gather_rejects_bad_inputs(cuda):
+    h, _, a, _ = _atom_table("molecules", 32, cuda)
+    with pytest.raises(ValueError, match="shape"):
+        band_mpnn.atom_neighbor_sum_sorted(h[:-1].contiguous(), a)
+    with pytest.raises(TypeError):
+        band_mpnn.src_readout_sorted(h, dict(a, src_sorted=a["src_sorted"]
+                                             .long()))
+    with pytest.raises(ValueError, match="contiguous"):
+        band_mpnn.src_readout_sorted(h.t().contiguous().t(), a)

@@ -445,11 +445,12 @@ def test_merge_matching_matches_jax_package():
 ])
 def test_unported_training_options_raise(tmp_path, kw, match):
     """What is not ported raises. The plain-band options (``bias``,
-    ``undirected``, bfloat16) have been ported since: they train (parity
-    with the JAX package: tests/test_torch_plain_band_train.py)."""
+    ``undirected``, bfloat16) and ``atom_messages`` have been ported since:
+    they train (parity with the JAX package:
+    tests/test_torch_plain_band_train.py, tests/test_torch_atom_messages.py)."""
     cfg = TrainConfig(data_path=REGRESSION, device="cpu",
                       save_dir=str(tmp_path), **dict(SMALL, **kw))
-    if match in ("bias", "undirected", "bfloat16"):
+    if match in ("bias", "undirected", "bfloat16", "atom_messages"):
         cfg.epochs = 1
         score, _ = cross_validate(cfg)
         assert np.isfinite(score)
