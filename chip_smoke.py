@@ -172,6 +172,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    counts: per forward depth - 1 neighbour sums and one readout; per
    training step one more launch of each (their VJPs); no other kernel.
 
+8. Extra features: at the same width, with the C++ featurizer, the C++
+   descriptor engine's ``rdkit_2d_normalized`` time for the 500 molecules
+   of regression.csv (caches emptied), then ``cross_validate`` (3 epochs,
+   ``rdkit_2d_normalized``, ``no_features_scaling``; its cached epoch's
+   breakdown and idle share) and serving from its checkpoint, every
+   molecule's descriptors from the C++ engine (none from the Python one);
+   serving from a written checkpoint with ``features_path``
+   (tests/data/regression.npz) plus ``morgan`` and a features scaler;
+   ``cross_validate`` (2 epochs) with ``atom_descriptors="descriptor"``
+   (W_d) and bond features from seeded ``.npz`` files, and serving from
+   it; serving the ``"feature"`` mode with atom and bond extras (the C++
+   loader's ``_apply_extras``, counted) and ``atom_messages`` with
+   descriptors from written checkpoints; ``cross_validate`` (2 epochs) on
+   spectra with phase features and a phase mask, and serving from it; and
+   serving ``features_only`` (no kernel launch). Each card run against the
+   same run on the CPU: predictions rtol 1e-4, atol 1e-5; the first
+   step's loss and gradient norm 1e-4; test scores and per-epoch losses
+   1e-2. Exact launch counts as in phases 3, 4 and 7.
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -1300,11 +1319,17 @@ def gather_checks(bm, results, flush, dev, gb):
 
 # -- phase 3 ----------------------------------------------------------------
 
-def write_checkpoint(path, polymer: bool, hidden: int = HIDDEN, **options):
+def write_checkpoint(path, polymer: bool, hidden: int = HIDDEN,
+                     features_size: int = 0, descriptors_size: int = 0,
+                     atom_extra: int = 0, bond_extra: int = 0,
+                     scalers=None, **options):
     """A full-width checkpoint in the JAX package's .ckpt format, from
     seeded numpy weights (Xavier-normal, as the JAX init draws them).
     ``options`` are further TrainConfig fields (``param_dtype``,
-    ``atom_messages``)."""
+    ``atom_messages``, the extra inputs). The extra widths: molecule
+    features (the FFN's input), atom descriptors (W_d and the FFN's input),
+    extra atom and bond features (W_i, W_h, W_o); ``features_only`` leaves
+    the encoder out. ``scalers`` are saved beside the target scaler."""
     from polymer_chemprop_tpu_torch.config import TrainConfig
     from polymer_chemprop_tpu_torch.data import StandardScaler
     from polymer_chemprop_tpu_torch.features import FeaturizationConfig
@@ -1319,25 +1344,30 @@ def write_checkpoint(path, polymer: bool, hidden: int = HIDDEN, **options):
             p["b"] = (rng.normal(size=(o,)) * 0.01).astype(np.float32)
         return p
 
-    fc = FeaturizationConfig(polymer=polymer)
-    H = hidden
+    fc = FeaturizationConfig(polymer=polymer, extra_atom_fdim=atom_extra,
+                             extra_bond_fdim=bond_extra)
+    H, D = hidden, descriptors_size
     # atom_messages: W_i on the atom features, W_h on the messages and the
     # bond features
     am = options.get("atom_messages", False)
-    params = {
-        "encoders": [{"W_i": linear(fc.atom_fdim if am else fc.bond_fdim(),
-                                    H, bias=False),
-                      "W_h": linear(H + (fc.bond_fdim(True) if am else 0), H,
-                                    bias=False),
-                      "W_o": linear(fc.atom_fdim + H, H)}],
-        "ffn": [linear(H, H), linear(H, 1)],
-    }
+    encoder = {"W_i": linear(fc.atom_fdim if am else fc.bond_fdim(), H,
+                             bias=False),
+               "W_h": linear(H + (fc.bond_fdim(True) if am else 0), H,
+                             bias=False),
+               "W_o": linear(fc.atom_fdim + H, H)}
+    if D:
+        encoder["W_d"] = linear(H + D, H + D)
+    if options.get("features_only"):
+        params = {"ffn": [linear(features_size, H), linear(H, 1)]}
+    else:
+        params = {"encoders": [encoder],
+                  "ffn": [linear(H + features_size + D, H), linear(H, 1)]}
     tcfg = TrainConfig(hidden_size=H, depth=DEPTH, ffn_num_layers=2,
                        ffn_hidden_size=H, polymer=polymer,
                        target_columns=["target"], seed=SEED, **options)
     scaler = StandardScaler(np.array([0.0]), np.array([2.0]))
     save_checkpoint(path, params, tcfg.to_dict(),
-                    scalers={"data_scaler": scaler})
+                    scalers=dict(scalers or {}, data_scaler=scaler))
 
 
 def polymer_csv(path, with_target: bool = False):
@@ -1515,23 +1545,37 @@ def fingerprint_path(card):
 
 def train_setup(cfg, device):
     """``(train step, shuffled train loader)`` of ``cfg``'s run as the
-    trainer builds them (reference-stream init, serial batching)."""
+    trainer builds them (reference-stream init, serial batching), with the
+    run's extra inputs, feature scalers and spectra normalization."""
     from polymer_chemprop_tpu_torch.data import (MoleculeDataLoader,
                                                   get_data, split_data)
     from polymer_chemprop_tpu_torch.models.init import reference_init_model
-    from polymer_chemprop_tpu_torch.models.model import build_model_config
+    from polymer_chemprop_tpu_torch.models.model import (
+        build_model_config, widened_featurization)
     from polymer_chemprop_tpu_torch.train.scheduler import (build_optimizer,
                                                             build_schedule)
     from polymer_chemprop_tpu_torch.train.step import TrainStep, make_loss_fn
-    fcfg = cfg.featurization()
-    data = get_data(cfg.data_path, config=fcfg)
-    data.reset_features_and_targets()
-    train, _, _ = split_data(data, cfg.split_type, cfg.split_sizes, cfg.seed)
-    train.normalize_targets()
+    from polymer_chemprop_tpu_torch.train.trainer import (
+        _normalize_spectra_targets, _scale_features)
+    data = get_data(cfg.data_path, config=cfg.featurization(),
+                    features_path=cfg.features_path,
+                    features_generators=cfg.features_generator,
+                    atom_descriptors=cfg.atom_descriptors,
+                    atom_descriptors_path=cfg.atom_descriptors_path,
+                    bond_features_path=cfg.bond_features_path,
+                    phase_features_path=cfg.phase_features_path)
+    fcfg = widened_featurization(cfg, data)
+    train, val, test = split_data(data, cfg.split_type, cfg.split_sizes,
+                                  cfg.seed)
+    _scale_features(cfg, train, val, test)
+    if cfg.dataset_type == "spectra":
+        _normalize_spectra_targets(train, val, test, cfg)
+    else:
+        train.normalize_targets()
     loader = MoleculeDataLoader(
         train, fcfg, batch_size=cfg.batch_size, shuffle=True, seed=cfg.seed,
         num_workers=1, use_native=cfg.use_native_featurizer)
-    mcfg = build_model_config(cfg, data.num_tasks)
+    mcfg = build_model_config(cfg, data.num_tasks, data=train)
     model = reference_init_model(mcfg, cfg.pytorch_seed).to(device)
     step = TrainStep(
         model, build_optimizer(cfg.optimizer, model.parameters()),
@@ -2235,6 +2279,269 @@ def atom_messages_path(card):
     return launches
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+def descriptor_files(csv_path, out_dir):
+    """Per-atom (atoms, 3) and per-bond (bonds, 2) descriptor files for
+    every molecule of ``csv_path``, from a numpy seed, sized from the
+    port's own parser (as tests/test_integration.py:441-467)."""
+    from polymer_chemprop_tpu_torch.chem import parse_smiles
+    rng = np.random.default_rng(SEED)
+    atoms, bonds = [], []
+    for smi in read_smiles(csv_path):
+        m = parse_smiles(smi)
+        atoms.append(rng.normal(size=(m.n_atoms, 3)))
+        bonds.append(rng.normal(size=(m.n_bonds, 2)))
+    paths = (os.path.join(out_dir, "atom_descriptors.npz"),
+             os.path.join(out_dir, "bond_features.npz"))
+    np.savez(paths[0], *atoms)
+    np.savez(paths[1], *bonds)
+    return paths
+
+
+def extra_features_path(card):
+    """The extra features through the entry points at full width (hidden
+    300, depth 3, FFN 2 x 300, relu, mean, batch 50, C++ featurizer), each
+    card run held against the same run on the CPU: ``cross_validate`` with
+    ``rdkit_2d_normalized``, with atom descriptors and bond features, and
+    on spectra with phase features and a phase mask, each served from its
+    checkpoint; serving from written checkpoints with a feature file plus
+    ``morgan``, with atom and bond features in the ``"feature"`` mode (the
+    C++ loader's ``_apply_extras``), with ``atom_messages`` and
+    descriptors, and ``features_only``. Exact launch counts. Returns the
+    launches and the tensor-core launches."""
+    import csv
+    import re
+
+    from polymer_chemprop_tpu_torch.config import PredictConfig, TrainConfig
+    from polymer_chemprop_tpu_torch.data import MoleculeDataLoader
+    from polymer_chemprop_tpu_torch.data import StandardScaler
+    from polymer_chemprop_tpu_torch.features import generators
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    from polymer_chemprop_tpu_torch.train.make_predictions import (
+        make_predictions,
+    )
+    out = os.path.join(OUT_DIR, "features")
+    os.makedirs(out, exist_ok=True)
+    data_dir = os.path.join(ROOT, "tests", "data")
+    reg_csv = os.path.join(data_dir, "regression.csv")
+    spectra_csv = os.path.join(data_dir, "spectra.csv")
+    phases = os.path.join(data_dir, "spectra_features.csv")
+    atoms_npz, bonds_npz = descriptor_files(reg_csv, out)
+    batches = lambda k: math.ceil(k / BATCH_SIZE)
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+    tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
+    neighbor, readout = GATHER_OPS.values()
+    rng = np.random.default_rng(SEED)
+
+    def tally(forwards, steps=0, atom_messages=False):
+        """The counts since the last reset, exactly as the code implies
+        (the bond-message layers all on the tensor cores at "high")."""
+        counts = bm.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        if atom_messages:
+            want[neighbor] = (DEPTH - 1) * (forwards + steps)
+            want[readout] = forwards + steps
+        elif forwards:
+            want["band_rev_layer"] = (DEPTH - 1) * forwards
+            want["band_rev_bwd"] = (DEPTH - 1) * steps
+            want["atom_readout"] = forwards
+        check(counts == want, f"launches {counts}, expected {want}")
+        tc = bm.tc_launch_counts()
+        check(tc == dict(dict.fromkeys(tc, 0),
+                         band_rev_layer=want["band_rev_layer"]),
+              f"tensor-core launches {tc}")
+        for k in launches:
+            launches[k] += counts[k]
+        for k in tc_launches:
+            tc_launches[k] += tc[k]
+        return counts
+
+    def serve(tag, ckpt, test_path, width=1, atom_messages=False,
+              uses_encoder=True, **kw):
+        """make_predictions on the card (counts from 0) and on the CPU."""
+        def run(device):
+            return np.asarray(make_predictions(PredictConfig(
+                test_path=test_path, checkpoint_path=ckpt,
+                preds_path=os.path.join(out, f"{tag}_{device}.csv"),
+                batch_size=BATCH_SIZE, num_workers=4, device=device, **kw)),
+                dtype=float)
+
+        bm.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run("cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = got.shape[0]
+        counts = tally(batches(n) if uses_encoder else 0,
+                       atom_messages=atom_messages)
+        want = run("cpu")
+        check(got.shape == want.shape == (n, width), (got.shape, want.shape))
+        check(np.isfinite(got).all(), "non-finite predictions")
+        log(f"[features] serving {tag}: {n} molecules, launches {counts}, "
+            f"{n / seconds:.1f} molecules/s end to end ({seconds:.3f} s, "
+            f"C++ featurizer) on {card}; max |gpu - cpu| "
+            f"{np.abs(got - want).max():.3e}")
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        return n
+
+    def train(tag, data_path, epochs, **kw):
+        """cross_validate on the card (counts from 0) and on the CPU, the
+        first step on both; returns the card run's config."""
+        def config(device):
+            return TrainConfig(
+                data_path=data_path, hidden_size=HIDDEN, depth=DEPTH,
+                ffn_num_layers=2, ffn_hidden_size=HIDDEN, dropout=0.0,
+                epochs=epochs, batch_size=BATCH_SIZE, seed=SEED,
+                num_workers=4, quiet=True, device=device, empty_cache=True,
+                save_dir=os.path.join(out, f"train_{tag}_{device}"), **kw)
+
+        n = len(read_smiles(data_path))
+        n_train, n_val = int(0.8 * n), int(0.9 * n) - int(0.8 * n)
+        n_test = n - int(0.9 * n)
+        steps = epochs * batches(n_train)
+        forwards = steps + epochs * (batches(n_val) + batches(n_train)) \
+            + batches(n_test)
+        cfg = config("cuda")
+        bm.reset_launch_counts()
+        t0 = time.perf_counter()
+        score, _ = cross_validate(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = tally(forwards, steps)
+
+        def losses_of(save_dir):
+            path = os.path.join(save_dir, "fold_0", "model_0",
+                                "train_val_loss_log.csv")
+            with open(path) as f:
+                rows = list(csv.DictReader(f))
+            check(len(rows) == epochs, rows)
+            # spectra rows are shorter than their header (one sid a set,
+            # not one a task), as in the JAX package: None past the end
+            check(all(np.isfinite(float(v)) for r in rows
+                      for v in r.values() if v is not None), rows)
+            return [float(r["train_loss"]) for r in rows]
+
+        losses = losses_of(cfg.save_dir)
+        check(np.isfinite(score), score)
+        with open(os.path.join(cfg.save_dir, "verbose.log")) as f:
+            rates = [float(x) for x in
+                     re.findall(r"([0-9.]+) steps/s", f.read())][-epochs:]
+        check(len(rates) == epochs, rates)
+        log(f"[features] train {tag}: {n} molecules "
+            f"({n_train}/{n_val}/{n_test}), {epochs} epochs, {steps} steps, "
+            f"{forwards} forwards, launches {counts}, test {cfg.metric} "
+            f"{score:.6f}, {seconds:.3f} s end to end; train loss by epoch "
+            f"{losses}; first epoch {rates[0]:.1f} steps/s, last "
+            f"{rates[-1]:.1f} steps/s on {card}")
+        got, want = first_step(cfg, "cuda"), first_step(config("cpu"), "cpu")
+        log(f"[features] train {tag}: first step (loss, gnorm) gpu {got} "
+            f"cpu {want}")
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        cpu_cfg = config("cpu")
+        cpu_score, _ = cross_validate(cpu_cfg)
+        cpu_losses = losses_of(cpu_cfg.save_dir)
+        log(f"[features] train {tag}: test {cfg.metric} gpu {score:.6f} cpu "
+            f"{cpu_score:.6f}; train loss by epoch cpu {cpu_losses}")
+        np.testing.assert_allclose(score, cpu_score, rtol=1e-2)
+        np.testing.assert_allclose(losses, cpu_losses, rtol=1e-2)
+        return cfg
+
+    def best(cfg):
+        return os.path.join(cfg.save_dir, "fold_0", "model_0",
+                            "best_model.ckpt")
+
+    # 1. rdkit_2d_normalized, the reference's documented recipe: the C++
+    # engine on the 500 molecules (caches emptied), then train and serve
+    smiles = read_smiles(reg_csv)
+    generators._PRECOMPUTED_RDKIT2D.clear()
+    generators._PRECOMPUTED_RDKIT2D_NORM.clear()
+    generators.python_engine_count(reset=True)
+    t0 = time.perf_counter()
+    n_new = generators.precompute_rdkit2d_batch(smiles)
+    seconds = time.perf_counter() - t0
+    check(n_new == len(set(smiles)), f"{n_new} of {len(set(smiles))} "
+          "molecules cached by the C++ engine")
+    log(f"[features] rdkit_2d_normalized, C++ engine: {len(smiles)} "
+        f"molecules in {1e3 * seconds:.2f} ms ({len(smiles) / seconds:.1f} "
+        f"molecules/s, {min(os.cpu_count() or 1, 8)} threads, raw "
+        f"descriptors and CDF normalization) on the host of {card}")
+    rdkit = dict(features_generator=["rdkit_2d_normalized"],
+                 no_features_scaling=True)
+    cfg = train("rdkit_2d_normalized", reg_csv, TRAIN_EPOCHS["regression"],
+                **rdkit)
+    epoch_breakdown("rdkit_2d_normalized,", cfg, card)
+    serve("rdkit_2d_normalized", best(cfg), reg_csv)
+    check(generators.python_engine_count() == 0,
+          f"{generators.python_engine_count()} molecules went to the "
+          "Python descriptor engine")
+    check(all(s in generators._PRECOMPUTED_RDKIT2D_NORM for s in smiles),
+          "a molecule was not served by the C++ descriptor engine")
+
+    # 2. a feature file (500 x 200) plus morgan, with a features scaler
+    npz = os.path.join(data_dir, "regression.npz")
+    F = 200 + 2048
+    ckpt = os.path.join(out, "file_morgan", "model.ckpt")
+    write_checkpoint(ckpt, polymer=False, features_size=F,
+                     features_path=[npz], features_generator=["morgan"],
+                     scalers={"features_scaler": StandardScaler(
+                         rng.normal(size=F) * 0.1,
+                         rng.uniform(0.5, 2.0, size=F))})
+    serve("features_path + morgan", ckpt, reg_csv, features_path=[npz])
+
+    # 3. atom descriptors and bond features: train and serve; then the
+    # "feature" mode on the C++ loader's extras, and atom_messages
+    files = dict(atom_descriptors_path=atoms_npz,
+                 bond_features_path=bonds_npz)
+    cfg = train("descriptor + bond features", reg_csv, 2,
+                atom_descriptors="descriptor", **files)
+    serve("descriptor + bond features", best(cfg), reg_csv, **files)
+    ckpt = os.path.join(out, "feature_mode", "model.ckpt")
+    write_checkpoint(ckpt, polymer=False, atom_extra=3, bond_extra=2,
+                     atom_descriptors="feature", **files, scalers={
+                         "atom_descriptor_scaler": StandardScaler(
+                             np.full(3, 0.1), np.full(3, 1.5)),
+                         "bond_feature_scaler": StandardScaler(
+                             np.full(2, -0.1), np.full(2, 0.5))})
+    extras_calls = [0]
+    apply_extras = MoleculeDataLoader._apply_extras
+
+    def counted(self, *args, **kwargs):
+        extras_calls[0] += 1
+        return apply_extras(self, *args, **kwargs)
+
+    MoleculeDataLoader._apply_extras = counted
+    try:
+        n = serve("feature mode + bond features", ckpt, reg_csv, **files)
+    finally:
+        MoleculeDataLoader._apply_extras = apply_extras
+    # the card run and the CPU run each widen every batch on the host
+    check(extras_calls[0] == 2 * batches(n),
+          f"_apply_extras ran {extras_calls[0]} times")
+    ckpt = os.path.join(out, "am_descriptor", "model.ckpt")
+    write_checkpoint(ckpt, polymer=False, descriptors_size=3,
+                     atom_messages=True, atom_descriptors="descriptor",
+                     atom_descriptors_path=atoms_npz)
+    serve("atom_messages + descriptor", ckpt, reg_csv, atom_messages=True,
+          atom_descriptors_path=atoms_npz)
+
+    # 4. spectra with phase features and a phase mask: train and serve
+    cfg = train("spectra", spectra_csv, 2, dataset_type="spectra",
+                phase_features_path=phases,
+                spectra_phase_mask_path=os.path.join(data_dir,
+                                                     "spectra_mask.csv"))
+    serve("spectra", best(cfg), spectra_csv, width=6,
+          phase_features_path=phases)
+
+    # 5. features_only: the FFN on the features alone, no kernel
+    ckpt = os.path.join(out, "features_only", "model.ckpt")
+    write_checkpoint(ckpt, polymer=False, features_size=200,
+                     features_only=True, **rdkit)
+    serve("features_only", ckpt, reg_csv, uses_encoder=False)
+    return launches, tc_launches
+
+
 def main() -> int:
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
@@ -2255,11 +2562,12 @@ def main() -> int:
     training, training_tc = training_path(card)
     plain_band, plain_band_tc = plain_band_path(card, dev)
     atom_messages = atom_messages_path(card)
+    features, features_tc = extra_features_path(card)
     for counts in (fingerprint, training, plain_band, atom_messages,
-                   probe_path(card, dev, gb, results)):
+                   features, probe_path(card, dev, gb, results)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
-    for counts in (fingerprint_tc, training_tc, plain_band_tc):
+    for counts in (fingerprint_tc, training_tc, plain_band_tc, features_tc):
         for name, count in counts.items():
             tc_launches[name] += count
     check(all(count > 0 for count in launches.values()),

@@ -1,11 +1,16 @@
 """Batch loader: dataset -> fixed-shape host arrays.
 
-The port's copy of polymer_chemprop_tpu data/loader.py without the extra
-feature inputs and the Pallas switches. By default each batch is
-featurized and packed by the C++ library of native_ext.py (standard,
-polymer and reaction configurations, with explicit or added hydrogens),
-which is bit for bit the pure-Python path (``features/``); ``use_native=
-False`` takes the Python path. Batches are made on a thread pool when
+The port's copy of polymer_chemprop_tpu data/loader.py without the Pallas
+switches. By default each batch is featurized and packed by the C++
+library of native_ext.py (standard, polymer and reaction configurations,
+with explicit or added hydrogens), which is bit for bit the pure-Python
+path (``features/``); ``use_native=False`` takes the Python path. Extra
+per-atom and per-bond features stay on the C++ path only for standard
+single-molecule configurations, widened by :meth:`MoleculeDataLoader.
+_apply_extras`; polymers, reactions and multi-molecule rows with extras
+take the Python path, as in the JAX package. Molecule-level features ride
+along as ``(M, F)`` and atom descriptors as ``(pad_atoms, D)`` (row 0 is
+padding), both float32. Batches are made on a thread pool when
 there is more than one (a ctypes call releases the GIL), and every batch
 carries the dst-sorted bond layout of ops/sorted_aux.py. Every emitted
 batch shares one padding envelope, sticky under reshuffling, so the
@@ -34,12 +39,17 @@ class DeviceBatch:
 
     def __init__(self, graph_arrays: List[Dict[str, np.ndarray]],
                  targets: np.ndarray, mask: np.ndarray,
-                 data_weights: np.ndarray, size: int):
+                 data_weights: np.ndarray, size: int,
+                 features: Optional[np.ndarray] = None,
+                 atom_descriptors: Optional[np.ndarray] = None):
         self.graph_arrays = graph_arrays  # one dict per molecule position
         self.targets = targets            # (M, T) float32, 0 where missing
         self.mask = mask                  # (M, T) float32, 1 where present
         self.data_weights = data_weights  # (M, 1) float32, 0 on padding
         self.size = size                  # real datapoints in this batch
+        self.features = features          # (M, F) float32 or None
+        # (pad_atoms, D) float32 or None, aligned with the atom axis
+        self.atom_descriptors = atom_descriptors
 
 
 class MoleculeDataLoader:
@@ -62,10 +72,18 @@ class MoleculeDataLoader:
         self._counts: Optional[List[tuple]] = None
         self.number_of_molecules = (len(dataset[0].smiles) if len(dataset)
                                     else 1)
-        # None = auto = the C++ featurizer: every configuration the port
-        # takes is native-eligible (the JAX loader's extra-feature
-        # branches are not needed while the port rejects feature files)
-        self.use_native = use_native is None or bool(use_native)
+        # None = auto = the C++ featurizer. Extra per-atom/per-bond
+        # features stay on it only for standard single-molecule
+        # configurations (JAX loader.py:74-137); elsewhere they take the
+        # Python path
+        atom_extras = len(dataset) > 0 and dataset[0].atom_features is not None
+        bond_extras = len(dataset) > 0 and dataset[0].bond_features is not None
+        standard = (not config.reaction and not config.polymer
+                    and self.number_of_molecules == 1)
+        self.use_native = (use_native is None or bool(use_native)) and (
+            standard or not (atom_extras or bond_extras))
+        self._native_atom_extras = self.use_native and atom_extras
+        self._native_bond_extras = self.use_native and bond_extras
         self._native_kw = dict(
             polymer=config.polymer,
             reaction_mode=config.reaction_mode if config.reaction else None,
@@ -131,17 +149,78 @@ class MoleculeDataLoader:
         self._pad_bonds = max(self._pad_bonds or 0,
                               round_up(max(max_b, 1), self._align))
 
+    def _apply_extras(self, gb, points, valid, b2parse=None):
+        """Widen a native GraphBatch with per-atom and/or per-bond extra
+        features exactly like MolGraph._build_standard (extend or
+        overwrite): atom extras land on the packed atom slots, bond extras
+        are gathered through the native parse-order index (aligned to the
+        parser's bond.idx, like the reference's bond.GetIdx()), and every
+        f_bonds row re-copies its SOURCE atom's widened vector through b2a
+        (padding rows stay zero because slot/index 0 is zero). The JAX
+        package's loader.py:244-300."""
+        if not valid.all():
+            raise ValueError("invalid SMILES in a batch with extra "
+                             "features (row alignment would be lost)")
+        base = gb.f_atoms
+        base_bond_cols = gb.f_bonds.shape[1] - base.shape[1]
+        f_atoms = base
+        if self._native_atom_extras:
+            extras = [np.asarray(p.atom_features, np.float32)
+                      for p in points]
+            E = extras[0].shape[1]
+            overwrite = self.config.overwrite_default_atom_features
+            width = E if overwrite else base.shape[1] + E
+            f_atoms = np.zeros((base.shape[0], width), np.float32)
+            if not overwrite:
+                f_atoms[:, :base.shape[1]] = base
+            # per-molecule length check (featurization.py _build_standard)
+            per_mol = np.bincount(gb.a2mol[1:gb.n_atoms_real],
+                                  minlength=len(points))
+            if any(per_mol[i] != ex.shape[0]
+                   for i, ex in enumerate(extras)):
+                raise ValueError(
+                    "number of atoms differs from extra atom features")
+            stacked = np.concatenate(extras, axis=0)
+            f_atoms[1:1 + stacked.shape[0], width - E:] = stacked
+        bond_cols = gb.f_bonds[:, -base_bond_cols:]
+        if self._native_bond_extras:
+            bextras = [np.asarray(p.bond_features, np.float32)
+                       for p in points]
+            mol_of_bond = gb.a2mol[gb.b2dst[1:gb.n_bonds_real]]
+            per_mol_dir = np.bincount(mol_of_bond, minlength=len(points))
+            if any(per_mol_dir[i] != 2 * bx.shape[0]
+                   for i, bx in enumerate(bextras)):
+                raise ValueError(
+                    "number of bonds differs from extra bond features")
+            Eb = bextras[0].shape[1]
+            # index 0 of the zero-prepended concat catches padding rows
+            cat = np.concatenate(
+                [np.zeros((1, Eb), np.float32)] + bextras, axis=0)
+            extra_rows = cat[b2parse]
+            if self.config.overwrite_default_bond_features:
+                bond_cols = extra_rows
+            else:
+                bond_cols = np.concatenate([bond_cols, extra_rows], axis=1)
+        gb.f_atoms = f_atoms
+        gb.f_bonds = np.concatenate([f_atoms[gb.b2a], bond_cols], axis=1)
+        return gb
+
     def _make_batch(self, idxs: List[int]) -> DeviceBatch:
         points = [self.dataset[i] for i in idxs]
+        extras = self._native_atom_extras or self._native_bond_extras
         graph_arrays = []
         for pos in range(self.number_of_molecules):
             if self.use_native:
                 from ..native_ext import featurize_batch_native
-                gb, _ = featurize_batch_native(
+                b2parse = (np.zeros(self._pad_bonds, np.int32)
+                           if self._native_bond_extras else None)
+                gb, valid = featurize_batch_native(
                     [p.smiles[pos] for p in points],
                     pad_atoms=self._pad_atoms, pad_bonds=self._pad_bonds,
                     pad_mols=self.batch_size, n_threads=self.num_workers,
-                    **self._native_kw)
+                    bond_parse_out=b2parse, **self._native_kw)
+                if extras:
+                    gb = self._apply_extras(gb, points, valid, b2parse)
             else:
                 graphs = [p.mol_graphs(self.config)[pos] for p in points]
                 gb = batch_graphs(graphs, pad_atoms=self._pad_atoms,
@@ -161,8 +240,26 @@ class MoleculeDataLoader:
                         targets[i, t] = v
                         mask[i, t] = 1.0
             weights[i, 0] = p.data_weight
+        feats = None
+        if points[0].features is not None:
+            feats = np.zeros((M, len(points[0].features)), np.float32)
+            for i, p in enumerate(points):
+                feats[i] = p.features
+        atom_desc = None
+        if points[0].atom_descriptors is not None:
+            # per-atom descriptors stacked along the batched atom axis
+            # (slot 0 is padding, as in the graph arrays)
+            atom_desc = np.zeros((self._pad_atoms,
+                                  points[0].atom_descriptors.shape[1]),
+                                 np.float32)
+            ai = 1
+            for p in points:
+                d = p.atom_descriptors
+                atom_desc[ai:ai + d.shape[0]] = d
+                ai += d.shape[0]
         return DeviceBatch(graph_arrays, targets, mask, weights,
-                           size=len(points))
+                           size=len(points), features=feats,
+                           atom_descriptors=atom_desc)
 
     def __iter__(self) -> Iterator[DeviceBatch]:
         order = self._indices()

@@ -6,8 +6,10 @@ computes ``y = x @ w + b`` (polymer_chemprop_tpu models/nn.py:52-64);
 one transpose, in each direction, lives here.
 
 JAX pytree layout: ``{"encoders": [{"W_i": {...}, "W_h": {...},
-"W_o": {...}}, ...], "ffn": [{...}, ...]}``. With ``mpn_shared`` the JAX
-list repeats one encoder; the port keeps one module.
+"W_o": {...}}, ...], "ffn": [{...}, ...]}``, each encoder with a ``"W_d"``
+as well in the ``"descriptor"`` mode. With ``mpn_shared`` the JAX list
+repeats one encoder; the port keeps one module. A ``features_only`` model
+has no ``"encoders"`` entry (JAX model.py:67).
 
 The optimizer state crosses the same way. The JAX package saves its optax
 state as the flat list of leaves (utils/checkpoint.py:94-99), and jax
@@ -17,8 +19,8 @@ chains that train/scheduler.py builds the list is
 * adam, adamw: ``[count, *mu, *nu, count]`` (scale_by_adam's count and
   moments, then scale_by_schedule's count), each moment tree holding the
   trainable parameters only (frozen ones are masked out by
-  ``multi_transform``) in the order ``encoders[i].{W_h, W_i, W_o}.{b, w}``,
-  ``ffn[j].{b, w}``;
+  ``multi_transform``) in the order ``encoders[i].{W_d, W_h, W_i,
+  W_o}.{b, w}``, ``ffn[j].{b, w}``;
 * sgd: ``[count]``.
 
 ``clip_by_global_norm``, ``add_decayed_weights`` and ``set_to_zero`` carry
@@ -35,7 +37,7 @@ import torch
 
 from .model import MoleculeModel
 
-_ENCODER_LINEARS = ("W_i", "W_h", "W_o")
+_ENCODER_LINEARS = ("W_i", "W_h", "W_o", "W_d")
 
 
 def _linear_state(prefix: str, p: Dict) -> Dict[str, torch.Tensor]:
@@ -57,10 +59,11 @@ def params_from_jax(params: Dict, mpn_shared: bool = False
     for i, enc in enumerate(encoders):
         extra = set(enc) - set(_ENCODER_LINEARS)
         if extra:
-            raise NotImplementedError(
-                f"encoder parameters {sorted(extra)} are not on the port yet")
+            raise ValueError(f"unknown encoder parameters {sorted(extra)}")
         for name in _ENCODER_LINEARS:
-            state.update(_linear_state(f"encoders.{i}.{name}", enc[name]))
+            if name in enc:
+                state.update(_linear_state(f"encoders.{i}.{name}",
+                                           enc[name]))
     for j, layer in enumerate(params["ffn"]):
         state.update(_linear_state(f"ffn.{j}", layer))
     return state
@@ -75,11 +78,15 @@ def _param_tree(model: MoleculeModel, leaf: Callable) -> Dict:
             p["b"] = leaf(mod.bias)
         return p
 
-    encs = [{name: linear(getattr(e, name)) for name in _ENCODER_LINEARS}
-            for e in model.encoders]
+    tree = {"ffn": [linear(l) for l in model.ffn]}
+    if model.cfg.features_only:
+        return tree
+    encs = [{name: linear(getattr(e, name)) for name in _ENCODER_LINEARS
+             if hasattr(e, name)} for e in model.encoders]
     if model.cfg.mpn_shared:
         encs = encs * model.cfg.number_of_molecules
-    return {"encoders": encs, "ffn": [linear(l) for l in model.ffn]}
+    tree["encoders"] = encs
+    return tree
 
 
 def _to_jax_layout(t: torch.Tensor) -> np.ndarray:

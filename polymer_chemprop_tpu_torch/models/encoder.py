@@ -69,9 +69,17 @@ With ``bias`` the padding rows are not zero (``W_i(0) + b``); they lie in no
 atom's run, are their own reverse and carry weight 0, so no real row and no
 atom reads them.
 
+With ``atom_descriptors="descriptor"`` the atom hiddens are concatenated
+with the batch's per-atom descriptors ``(A, D)`` and go through ``W_d``,
+an ``(H + D) -> (H + D)`` linear layer with a bias and no activation (JAX
+encoder.py:82-84, 306-309), before the molecule readout; so the encoder's
+output is ``H + D`` wide. With ``"feature"`` the descriptors widen the atom
+features instead (``atom_fdim``), and nothing here changes.
+
 In training mode (``module.train()``) dropout is applied where the JAX
-package applies it (encoder.py:263-266, 291, 304): after every depth-loop
-layer and after the atom hiddens, from an explicit ``torch.Generator``. Both
+package applies it (encoder.py:263-266, 291, 304, 309): after every
+depth-loop layer, after the atom hiddens and after ``W_d``, from an
+explicit ``torch.Generator``. Both
 branches are differentiable: the kernel branch through the hand-written
 ``torch.autograd.Function``s of ops/band_mpnn.py, the reference branch
 through PyTorch's own autograd.
@@ -123,6 +131,7 @@ class EncoderConfig:
     undirected: bool = False
     atom_messages: bool = False
     atom_descriptors: Optional[str] = None
+    atom_descriptors_size: int = 0
     compute_dtype: str = "float32"
     band_precision: str = "high"
 
@@ -130,17 +139,13 @@ class EncoderConfig:
         check_precision(self.band_precision)
 
     def check_supported(self) -> None:
-        """Raise for the configurations the JAX package refuses, and for
-        those it sends to modules the port does not have yet (see
-        ROADMAP.md)."""
+        """Raise for the configurations the JAX package refuses."""
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}: expected "
                              "'float32' or 'bfloat16'")
         if self.atom_messages and self.undirected:
             raise ValueError("Undirected is unnecessary when using "
                              "atom_messages (reference args.py:588-590)")
-        if self.atom_descriptors is not None:
-            raise NotImplementedError("not on the port yet: atom_descriptors")
 
     def layer_form(self) -> str:
         """``"rev"``, ``"matmul_act"`` or ``"plain"``: the depth-loop layer
@@ -156,9 +161,10 @@ class EncoderConfig:
 
 class MPNEncoder(nn.Module):
     """One message-passing encoder (reference mpn.py:46-64): W_i and W_h
-    with a bias only when ``cfg.bias``, W_o always with one. Weights use
-    torch's (out, in) layout. With ``atom_messages`` W_i takes the atom
-    features and W_h ``H + bond_fdim`` inputs (JAX encoder.py:74-75)."""
+    with a bias only when ``cfg.bias``, W_o always with one, and W_d (with
+    a bias) in the ``"descriptor"`` mode. Weights use torch's (out, in)
+    layout. With ``atom_messages`` W_i takes the atom features and W_h
+    ``H + bond_fdim`` inputs (JAX encoder.py:74-75)."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -170,13 +176,20 @@ class MPNEncoder(nn.Module):
                              else cfg.bond_fdim, H, bias=cfg.bias)
         self.W_h = nn.Linear(H + extra, H, bias=cfg.bias)
         self.W_o = nn.Linear(cfg.atom_fdim + H, H, bias=True)
+        if cfg.atom_descriptors == "descriptor":
+            d = H + cfg.atom_descriptors_size
+            self.W_d = nn.Linear(d, d, bias=True)
         self.act_name = cfg.activation.lower()
         self.act = get_activation(self.act_name)
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Encode one GraphBatch (tensors) -> (num_mols, hidden).
-        ``generator`` feeds the dropout masks in training mode."""
+                generator: Optional[torch.Generator] = None,
+                atom_descriptors: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Encode one GraphBatch (tensors) -> (num_mols, hidden), or
+        (num_mols, hidden + D) when ``atom_descriptors`` ``(A, D)`` is given
+        (the ``"descriptor"`` mode). ``generator`` feeds the dropout masks
+        in training mode."""
         cfg = self.cfg
 
         def drop(x):
@@ -190,6 +203,10 @@ class MPNEncoder(nn.Module):
             a_message = self._bond_messages(batch, drop, bf16)
         atom_hiddens = drop(self.act(
             linear(self.W_o, torch.cat([f_atoms, a_message], 1), bf16)))
+        if atom_descriptors is not None:
+            atom_hiddens = drop(linear(
+                self.W_d, torch.cat([atom_hiddens, atom_descriptors], 1),
+                bf16))
         return molecule_readout(atom_hiddens, batch["w_atoms"],
                                 batch["a2mol"],
                                 batch["degree_of_polym"].shape[0],

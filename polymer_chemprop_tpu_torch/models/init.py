@@ -37,7 +37,10 @@ def init_model(model: MoleculeModel,
 def _skeleton_shapes(cfg: ModelConfig) -> List[Tuple[int, int, bool]]:
     """(in, out, has_bias) of every Linear in the reference's module
     construction order (mpn.py:46-64 per encoder, then model.py:79-100):
-    also the registration order of :class:`MoleculeModel`."""
+    also the registration order of :class:`MoleculeModel`. The reference
+    builds the encoders even for a ``features_only`` model (a forward-time
+    bypass, mpn.py:201-202), so their draws come first there too
+    (polymer_chemprop_tpu models/torch_init.py:38-41)."""
     e = cfg.encoder
     shapes: List[Tuple[int, int, bool]] = []
     # atom_messages: W_i on the atom features, W_h on the messages and the
@@ -48,6 +51,9 @@ def _skeleton_shapes(cfg: ModelConfig) -> List[Tuple[int, int, bool]]:
         shapes.append((input_dim, e.hidden_size, e.bias))
         shapes.append((w_h_input, e.hidden_size, e.bias))
         shapes.append((e.atom_fdim + e.hidden_size, e.hidden_size, True))
+        if e.atom_descriptors == "descriptor":
+            d = e.hidden_size + e.atom_descriptors_size
+            shapes.append((d, d, True))
     shapes += [(i, o, True) for i, o in ffn_dims(cfg)]
     return shapes
 
@@ -65,6 +71,10 @@ def reference_init_model(cfg: ModelConfig, pytorch_seed: int,
             layers = [nn.Linear(i, o, bias=b) for i, o, b in shapes]
             for layer in layers:
                 nn.init.xavier_normal_(layer.weight)
+    if cfg.features_only:
+        # the port's model keeps only the FFN, the last layers drawn
+        n_ffn = len(ffn_dims(cfg))
+        shapes, layers = shapes[-n_ffn:], layers[-n_ffn:]
     linears = [m for m in model.modules() if isinstance(m, nn.Linear)]
     assert [tuple(l.weight.shape) for l in linears] == \
         [(o, i) for i, o, _ in shapes]

@@ -45,8 +45,14 @@ def cross_validate(cfg: TrainConfig,
     info("Loading data")
     data = get_data(cfg.data_path, cfg.smiles_columns, cfg.target_columns,
                     cfg.ignore_columns, cfg.number_of_molecules, fcfg,
+                    features_path=cfg.features_path,
+                    features_generators=cfg.features_generator,
                     data_weights_path=cfg.data_weights_path,
-                    max_data_size=cfg.max_data_size)
+                    max_data_size=cfg.max_data_size,
+                    atom_descriptors=cfg.atom_descriptors,
+                    atom_descriptors_path=cfg.atom_descriptors_path,
+                    bond_features_path=cfg.bond_features_path,
+                    phase_features_path=cfg.phase_features_path)
 
     all_scores: Dict[str, List[List[float]]] = {}
     for fold_num in range(cfg.num_folds):

@@ -2,8 +2,11 @@
 
 The port's counterpart of polymer_chemprop_tpu train/make_predictions.py:
 read each JAX-format ``.ckpt``, featurize the input with the checkpoint's
-featurization config, batch with the dst-sorted bond layout, run the model
-on ``args.device`` (CUDA unless the caller asks for the CPU), average the
+featurization config and the extra inputs it was trained with (features
+generators inherited from the checkpoint; feature, phase, atom descriptor
+and bond feature files given again), re-apply each member's feature
+scalers, batch with the dst-sorted bond layout, run the model on
+``args.device`` (CUDA unless the caller asks for the CPU), average the
 ensemble, optionally report its variance or individual predictions, and
 write a CSV that keeps every input row ('Invalid SMILES' placeholders for
 rows that do not parse).
@@ -37,24 +40,89 @@ def load_model(ckpt_path: str):
     return params, TrainConfig.from_dict(config_dict), scalers
 
 
-def check_prediction_args(args: PredictConfig, tcfg: TrainConfig) -> None:
-    """Raise for the inputs the port does not support yet: molecule-level
-    extra features and per-atom/bond descriptor files."""
-    extras = {
-        "features_generator": tcfg.features_generator or args.features_generator,
-        "features_path": tcfg.features_path or args.features_path,
-        "phase_features_path": tcfg.phase_features_path
-        or args.phase_features_path,
-        "atom_descriptors": tcfg.atom_descriptors or args.atom_descriptors,
-        "atom_descriptors_path": tcfg.atom_descriptors_path
-        or args.atom_descriptors_path,
-        "bond_features_path": tcfg.bond_features_path
-        or args.bond_features_path,
-    }
-    used = [k for k, v in extras.items() if v]
-    if used:
-        raise NotImplementedError(
-            f"not on the port yet: extra feature inputs ({', '.join(used)})")
+def update_prediction_args(args: PredictConfig, tcfg: TrainConfig) -> None:
+    """Reconcile predict-time args with the training configuration
+    (reference utils.py:731-807, JAX make_predictions.py:52-90): extra
+    inputs given at training must be given again, and none may be given
+    that training did not use; a features generator is inherited from the
+    checkpoint."""
+    if tcfg.features_path and not args.features_path \
+            and not args.features_generator:
+        raise ValueError(
+            "Features were used during training so they must be specified "
+            "again during prediction using --features_path.")
+    if tcfg.features_generator and not args.features_generator:
+        args.features_generator = tcfg.features_generator
+    if args.features_generator and not (tcfg.features_generator
+                                        or tcfg.features_path):
+        raise ValueError(
+            "Features were not used during training, so they cannot be "
+            "specified during prediction.")
+    # extra atom/bond feature consistency (reference utils.py:769-807)
+    if tcfg.atom_descriptors_path and not args.atom_descriptors_path:
+        raise ValueError(
+            "Atom descriptors were used during training so they must be "
+            "specified again during prediction using "
+            "--atom_descriptors_path.")
+    if args.atom_descriptors_path and not tcfg.atom_descriptors_path:
+        raise ValueError(
+            "Atom descriptors were not used during training, so they "
+            "cannot be specified during prediction.")
+    if tcfg.bond_features_path and not args.bond_features_path:
+        raise ValueError(
+            "Bond features were used during training so they must be "
+            "specified again during prediction using "
+            "--bond_features_path.")
+    if args.bond_features_path and not tcfg.bond_features_path:
+        raise ValueError(
+            "Bond features were not used during training, so they cannot "
+            "be specified during prediction.")
+
+
+def load_prediction_data(args: PredictConfig, tcfg: TrainConfig, fcfg,
+                         smiles: Optional[List[List[str]]] = None):
+    """Every input row (invalid ones included) with the extra inputs the
+    checkpoint was trained with -> ``(full_data, full_rows)``."""
+    if smiles is not None:
+        full_data = get_data_from_smiles(
+            smiles, fcfg, skip_invalid_smiles=False,
+            features_generators=tcfg.features_generator)
+        return full_data, [{"smiles": ".".join(s)} for s in smiles]
+    full_data = get_data(
+        args.test_path, args.smiles_columns, target_columns=[],
+        number_of_molecules=args.number_of_molecules, config=fcfg,
+        skip_invalid_smiles=False, features_path=args.features_path,
+        features_generators=args.features_generator
+        or tcfg.features_generator,
+        atom_descriptors=args.atom_descriptors or tcfg.atom_descriptors,
+        atom_descriptors_path=args.atom_descriptors_path,
+        bond_features_path=args.bond_features_path,
+        phase_features_path=args.phase_features_path
+        or tcfg.phase_features_path,
+        store_row=True)
+    return full_data, [d.row for d in full_data]
+
+
+def apply_scalers(data, scalers) -> None:
+    """Re-apply one ensemble member's training-time feature scalers to the
+    raw features (reference make_predictions.py:146-153): the molecule
+    features, atom descriptor and bond feature scalers that its checkpoint
+    carries. A scaler is saved only when its scaling was on, so each is
+    applied when present."""
+    keys = ("features_scaler", "atom_descriptor_scaler",
+            "bond_feature_scaler")
+    if all(scalers.get(k) is None for k in keys):
+        return
+    data.reset_features_and_targets()
+    if data.features() is not None and \
+            scalers.get("features_scaler") is not None:
+        data.normalize_features(scalers["features_scaler"])
+    if scalers.get("atom_descriptor_scaler") is not None:
+        data.normalize_features(scalers["atom_descriptor_scaler"],
+                                scale_atom_descriptors=True)
+    if scalers.get("bond_feature_scaler") is not None:
+        data.normalize_features(scalers["bond_feature_scaler"],
+                                scale_bond_features=True)
 
 
 def make_predictions(args: PredictConfig,
@@ -77,21 +145,11 @@ def make_predictions(args: PredictConfig,
 
     _, tcfg, _ = load_model(ckpts[0])
     fcfg = tcfg.featurization()
-    check_prediction_args(args, tcfg)
+    update_prediction_args(args, tcfg)
 
     # every input row appears in the output CSV (reference
     # make_predictions.py:66-73, 216-221)
-    if smiles is not None:
-        full_data = get_data_from_smiles(smiles, fcfg,
-                                         skip_invalid_smiles=False)
-        full_rows = [{"smiles": ".".join(s)} for s in smiles]
-    else:
-        full_data = get_data(args.test_path, args.smiles_columns,
-                             target_columns=[],
-                             number_of_molecules=args.number_of_molecules,
-                             config=fcfg, skip_invalid_smiles=False,
-                             store_row=True)
-        full_rows = [d.row for d in full_data]
+    full_data, full_rows = load_prediction_data(args, tcfg, fcfg, smiles)
     full_to_valid, test_data = partition_valid(full_data, fcfg)
     if len(test_data) < len(full_data):
         print(f"Warning: {len(full_data) - len(test_data)} SMILES are "
@@ -105,7 +163,7 @@ def make_predictions(args: PredictConfig,
         result = [None] * len(full_data)
         return (result, {}) if return_index_map else result
 
-    model_cfg = build_model_config(tcfg, num_tasks)
+    model_cfg = build_model_config(tcfg, num_tasks, data=test_data)
     loader = MoleculeDataLoader(test_data, fcfg, batch_size=args.batch_size,
                                 num_workers=args.num_workers,
                                 use_native=args.use_native_featurizer)
@@ -116,6 +174,7 @@ def make_predictions(args: PredictConfig,
     for ckpt in ckpts:
         params, _, scalers = load_model(ckpt)
         load_jax_params(model, params)
+        apply_scalers(test_data, scalers)
         preds, emb = predict(model, loader, device,
                              scaler=scalers.get("data_scaler"),
                              return_embeddings=args.save_graph_embeddings)

@@ -5,8 +5,12 @@ The port's counterpart of polymer_chemprop_tpu train/molecule_fingerprint.py:
 the encoders' molecule embeddings ("MPN") or the FFN's input to its last
 layer ("last_FFN") of every input row, from one or more JAX-format
 ``.ckpt`` files stacked side by side, run on ``args.device`` (CUDA unless
-the caller asks for the CPU). Rows that do not parse keep their place in
-the CSV with 'Invalid SMILES' placeholders.
+the caller asks for the CPU). The extra inputs and each member's feature
+scalers flow through as in make_predictions: the "MPN" fingerprint holds
+the molecule features after the encodings, and a ``"descriptor"`` model
+applies W_d to the given atom descriptors (the JAX package's reads no
+descriptor files). Rows that do not parse keep their place in the CSV
+with 'Invalid SMILES' placeholders.
 """
 
 from __future__ import annotations
@@ -20,12 +24,18 @@ import numpy as np
 import torch
 
 from ..config import PredictConfig, find_checkpoints
-from ..data import MoleculeDataLoader, get_data, partition_valid
+from ..data import MoleculeDataLoader, partition_valid
 from ..models.convert import load_jax_params
-from ..models.encoder import batch_to_tensors
 from ..models.model import MoleculeModel, build_model_config
-from .make_predictions import _num_tasks, check_prediction_args, load_model
+from .make_predictions import (
+    _num_tasks,
+    apply_scalers,
+    load_model,
+    load_prediction_data,
+    update_prediction_args,
+)
 from .predict import resolve_device
+from .step import model_inputs
 
 
 @dataclasses.dataclass
@@ -59,16 +69,12 @@ def molecule_fingerprint(args: FingerprintConfig) -> np.ndarray:
 
     _, tcfg, _ = load_model(ckpts[0])
     fcfg = tcfg.featurization()
-    check_prediction_args(args, tcfg)
+    update_prediction_args(args, tcfg)
     # keep unparseable rows so the output preserves every input row with
     # 'Invalid SMILES' placeholders (reference molecule_fingerprint.py:44-60)
-    full_data = get_data(args.test_path, args.smiles_columns,
-                         target_columns=[],
-                         number_of_molecules=args.number_of_molecules,
-                         config=fcfg, skip_invalid_smiles=False,
-                         store_row=True)
+    full_data, _ = load_prediction_data(args, tcfg, fcfg)
     full_to_valid, test_data = partition_valid(full_data, fcfg)
-    model_cfg = build_model_config(tcfg, _num_tasks(tcfg))
+    model_cfg = build_model_config(tcfg, _num_tasks(tcfg), data=test_data)
     if len(test_data) == 0:
         # all rows unparseable: placeholder CSV at the fingerprint width
         width = (model_cfg.ffn_hidden_size if args.fingerprint_type ==
@@ -83,14 +89,17 @@ def molecule_fingerprint(args: FingerprintConfig) -> np.ndarray:
 
     all_fps = []
     for ckpt in ckpts:
-        params, _, _ = load_model(ckpt)
+        params, _, scalers = load_model(ckpt)
         load_jax_params(model, params)
+        apply_scalers(test_data, scalers)
         fps = []
         with torch.inference_mode():
             for batch in loader:
-                graphs = [batch_to_tensors(g, device)
-                          for g in batch.graph_arrays]
-                out = model.fingerprint(graphs, args.fingerprint_type)
+                b = model_inputs(batch, device)
+                out = model.fingerprint(
+                    b["graphs"], args.fingerprint_type,
+                    features=b.get("features"),
+                    atom_descriptors=b.get("atom_descriptors"))
                 fps.append(out.cpu().numpy()[:batch.size])
         all_fps.append(np.concatenate(fps, axis=0))
     stacked = np.concatenate(all_fps, axis=1)

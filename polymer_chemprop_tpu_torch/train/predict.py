@@ -8,8 +8,8 @@ import numpy as np
 import torch
 
 from ..data import MoleculeDataLoader, StandardScaler
-from ..models.encoder import batch_to_tensors
 from ..models.model import MoleculeModel, postprocess_preds
+from .step import model_inputs
 
 
 def resolve_device(device) -> torch.device:
@@ -36,8 +36,10 @@ def predict(model: MoleculeModel, data_loader: MoleculeDataLoader,
     all_preds: List[np.ndarray] = []
     all_embeddings: List[np.ndarray] = []
     for batch in data_loader:
-        graphs = [batch_to_tensors(g, device) for g in batch.graph_arrays]
-        preds, emb = model(graphs, return_embeddings=True)
+        b = model_inputs(batch, device)
+        preds, emb = model(b["graphs"], return_embeddings=True,
+                           features=b.get("features"),
+                           atom_descriptors=b.get("atom_descriptors"))
         preds = postprocess_preds(preds, model.cfg)
         all_preds.append(preds.cpu().numpy()[:batch.size])
         if return_embeddings:

@@ -19,16 +19,29 @@ from .loss import get_loss_fn, masked_loss
 from .scheduler import Schedule
 
 
+def model_inputs(device_batch, device) -> Dict:
+    """The model's inputs of a DeviceBatch as tensors on ``device``: the
+    graphs, and the molecule features ``(M, F)`` and atom descriptors
+    ``(A, D)`` when the batch has them (JAX step.py:31-34, 47-48)."""
+    d = {"graphs": [batch_to_tensors(g, device)
+                    for g in device_batch.graph_arrays]}
+    for key in ("features", "atom_descriptors"):
+        value = getattr(device_batch, key)
+        if value is not None:
+            d[key] = torch.as_tensor(value, dtype=torch.float32,
+                                     device=device)
+    return d
+
+
 def batch_tensors(device_batch, device) -> Dict:
-    """DeviceBatch (host arrays) -> tensors on ``device``."""
+    """DeviceBatch (host arrays) -> tensors on ``device``: the model's
+    inputs, targets, mask and loss weights."""
     as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
-    return {
-        "graphs": [batch_to_tensors(g, device)
-                   for g in device_batch.graph_arrays],
-        "targets": as_t(device_batch.targets),
-        "mask": as_t(device_batch.mask),
-        "weights": as_t(device_batch.data_weights),
-    }
+    d = model_inputs(device_batch, device)
+    d.update(targets=as_t(device_batch.targets),
+             mask=as_t(device_batch.mask),
+             weights=as_t(device_batch.data_weights))
+    return d
 
 
 def make_loss_fn(cfg: ModelConfig,
@@ -41,7 +54,9 @@ def make_loss_fn(cfg: ModelConfig,
 
     def loss_fn(model: MoleculeModel, batch: Dict,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        preds = model(batch["graphs"], generator=generator)
+        preds = model(batch["graphs"], generator=generator,
+                      features=batch.get("features"),
+                      atom_descriptors=batch.get("atom_descriptors"))
         targets, mask = batch["targets"], batch["mask"]
         if cfg.dataset_type == "multiclass":
             preds3 = preds.reshape(preds.shape[0], -1,

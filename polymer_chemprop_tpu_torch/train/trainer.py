@@ -1,10 +1,13 @@
 """Per-fold training orchestration (reference train/run_training.py:28-499).
 
 The port's counterpart of polymer_chemprop_tpu train/trainer.py on one
-device: split -> target scaling -> loaders -> per-ensemble-member init (or
-warm start, or resume) -> epoch loop (train epoch, eval val, per-epoch CSV
-logging, every-epoch resume checkpoint, best-model tracking) -> best-model
-test evaluation -> ensemble-averaged test predictions.
+device: split -> feature scaling (molecule features, atom descriptors, bond
+features) -> target scaling (regression) or spectra normalization with
+phase masks -> loaders -> per-ensemble-member init (or warm start, or
+resume) -> epoch loop (train epoch, eval val, per-epoch CSV logging,
+every-epoch resume checkpoint, best-model tracking) -> best-model test
+evaluation -> ensemble-averaged test predictions. The four scalers go into
+every checkpoint under the JAX package's keys.
 
 The model trains on ``cfg.device``: CUDA unless the caller asks for the
 CPU. Checkpoints are the JAX package's ``.ckpt`` (utils/checkpoint.py),
@@ -40,7 +43,11 @@ from ..models.convert import (
     params_to_jax,
 )
 from ..models.init import init_model, reference_init_model
-from ..models.model import MoleculeModel, build_model_config
+from ..models.model import (
+    MoleculeModel,
+    build_model_config,
+    widened_featurization,
+)
 from ..models.nn import compute_pnorm, param_count
 from ..utils.checkpoint import load_checkpoint, load_opt_leaves, save_checkpoint
 from ..utils.logging import get_logger
@@ -55,24 +62,6 @@ def check_training_args(cfg: TrainConfig) -> None:
     """Raise for what the port cannot train yet (see ROADMAP.md); the
     unported encoder options raise in EncoderConfig.check_supported."""
     missing = []
-    if cfg.dataset_type == "spectra":
-        missing.append("spectra training (target normalization and phase "
-                       "masks come with the extra features)")
-    extras = ("features_generator", "features_path", "phase_features_path",
-              "atom_descriptors", "atom_descriptors_path",
-              "bond_features_path", "separate_val_features_path",
-              "separate_test_features_path",
-              "separate_val_phase_features_path",
-              "separate_test_phase_features_path",
-              "separate_val_atom_descriptors_path",
-              "separate_test_atom_descriptors_path",
-              "separate_val_bond_features_path",
-              "separate_test_bond_features_path")
-    used = [k for k in extras if getattr(cfg, k)]
-    if used or cfg.features_only:
-        missing.append("extra feature inputs ("
-                       + ", ".join(used + ["features_only"] * cfg.features_only)
-                       + ")")
     if cfg.data_parallel or cfg.graph_parallel:
         missing.append("data_parallel / graph_parallel (one device only)")
     if cfg.tensorboard:
@@ -171,14 +160,29 @@ def _load_frzn_into(params, frzn_path: str, cfg: TrainConfig):
 
 
 def _split(cfg: TrainConfig, data: MoleculeDataset, fcfg):
-    """(reference run_training.py:57-105)."""
+    """(reference run_training.py:57-105); separate sets take their own
+    feature, phase, atom descriptor and bond feature files (JAX
+    trainer.py:205-232)."""
     if cfg.separate_val_path or cfg.separate_test_path:
-        def separate(path):
-            return get_data(path, cfg.smiles_columns, cfg.target_columns,
-                            cfg.ignore_columns, cfg.number_of_molecules,
-                            fcfg) if path else None
-        val_data = separate(cfg.separate_val_path)
-        test_data = separate(cfg.separate_test_path)
+        def separate(split):
+            path = getattr(cfg, f"separate_{split}_path")
+            if not path:
+                return None
+            return get_data(
+                path, cfg.smiles_columns, cfg.target_columns,
+                cfg.ignore_columns, cfg.number_of_molecules, fcfg,
+                features_path=getattr(cfg, f"separate_{split}_features_path")
+                or cfg.features_path,
+                features_generators=cfg.features_generator,
+                atom_descriptors=cfg.atom_descriptors,
+                atom_descriptors_path=getattr(
+                    cfg, f"separate_{split}_atom_descriptors_path"),
+                bond_features_path=getattr(
+                    cfg, f"separate_{split}_bond_features_path"),
+                phase_features_path=getattr(
+                    cfg, f"separate_{split}_phase_features_path"))
+        val_data = separate("val")
+        test_data = separate("test")
         split_args = (cfg.seed, cfg.num_folds, cfg.folds_file,
                       cfg.val_fold_index, cfg.test_fold_index)
         if val_data is not None and test_data is not None:
@@ -210,7 +214,9 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
     device = resolve_device(cfg.device)
     log = logger or get_logger("train", cfg.save_dir, cfg.quiet)
     debug, info = log.debug, log.info
-    fcfg = cfg.featurization()
+    # widened by the dataset's extra atom/bond features (reference
+    # cross_validate.py:83-91)
+    fcfg = widened_featurization(cfg, data)
 
     train_data, val_data, test_data = _split(cfg, data, fcfg)
 
@@ -231,13 +237,18 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
                            data_path=cfg.data_path,
                            smiles_columns=cfg.smiles_columns)
 
+    scalers = _scale_features(cfg, train_data, val_data, test_data)
+
     # target scaling (reference run_training.py:143-158)
     scaler = None
     if cfg.dataset_type == "regression":
         debug("Fitting scaler")
         scaler = train_data.normalize_targets()
-    scalers = {"data_scaler": scaler, "features_scaler": None,
-               "atom_descriptor_scaler": None, "bond_feature_scaler": None}
+    elif cfg.dataset_type == "spectra":
+        debug("Normalizing spectra and excluding spectra regions based on "
+              "phase")
+        _normalize_spectra_targets(train_data, val_data, test_data, cfg)
+    scalers["data_scaler"] = scaler
 
     # loaders
     set_cache_graph(len(data) <= cfg.cache_cutoff and not cfg.no_cache_mol)
@@ -251,7 +262,7 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
     # unshuffled train loader for per-epoch train-set evaluation
     train_eval_loader = MoleculeDataLoader(train_data, fcfg, **loader_kw)
 
-    model_cfg = build_model_config(cfg, num_tasks)
+    model_cfg = build_model_config(cfg, num_tasks, data=train_data)
     save_dir = cfg.save_dir
     # reference quirk kept for parity: the Noam horizon is built with
     # steps_per_epoch = train_size // batch_size (FLOOR) although the
@@ -447,6 +458,84 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
         with open(os.path.join(save_dir, "test_scores.json"), "w") as f:
             json.dump(ensemble_scores, f, indent=4, sort_keys=True)
     return ensemble_scores
+
+
+def _scale_features(cfg: TrainConfig, train_data, val_data,
+                    test_data) -> Dict:
+    """Fit the feature scalers on the training set and apply them to all
+    three sets (reference run_training.py:111-130, JAX trainer.py:276-296):
+    molecule features, atom descriptors (or extra atom features) and bond
+    features, each unless its ``no_*_scaling`` flag is set. Returns the
+    checkpoint's scaler dict, ``data_scaler`` still None."""
+    sets = (val_data, test_data)
+    features_scaler = ad_scaler = bf_scaler = None
+    if train_data.features() is not None and not cfg.no_features_scaling:
+        features_scaler = train_data.normalize_features(replace_nan_token=0)
+        for ds in sets:
+            ds.normalize_features(features_scaler)
+    if len(train_data) and (train_data[0].atom_descriptors is not None or
+                            train_data[0].atom_features is not None) \
+            and not cfg.no_atom_descriptor_scaling:
+        ad_scaler = train_data.normalize_features(
+            replace_nan_token=0, scale_atom_descriptors=True)
+        for ds in sets:
+            ds.normalize_features(ad_scaler, scale_atom_descriptors=True)
+    if len(train_data) and train_data[0].bond_features is not None \
+            and not cfg.no_bond_features_scaling:
+        bf_scaler = train_data.normalize_features(
+            replace_nan_token=0, scale_bond_features=True)
+        for ds in sets:
+            ds.normalize_features(bf_scaler, scale_bond_features=True)
+    return {"data_scaler": None, "features_scaler": features_scaler,
+            "atom_descriptor_scaler": ad_scaler,
+            "bond_feature_scaler": bf_scaler}
+
+
+def _normalize_spectra_targets(train_data, val_data, test_data,
+                               cfg: TrainConfig) -> None:
+    """Spectra normalization with optional phase masks (reference
+    spectra_utils.py:162-208 + run_training.py:147-158, JAX
+    trainer.py:833-862): masked-out regions become missing targets, values
+    below ``spectra_target_floor`` are raised to it, and each spectrum is
+    scaled to sum 1."""
+    phase_mask = None
+    if cfg.spectra_phase_mask_path:
+        phase_mask = _load_phase_mask(cfg.spectra_phase_mask_path)
+    for ds in (train_data, val_data, test_data):
+        if len(ds) == 0:
+            continue
+        # dedicated phase features when provided (reference data.py:327-336),
+        # else the RAW molecule features as one-hot phases: the phase
+        # indicator is never the scaled features
+        if phase_mask is not None:
+            phase_feats = ds.phase_features() or [d.raw_features for d in ds]
+        else:
+            phase_feats = None
+        new_targets = []
+        for i, t in enumerate(ds.targets()):
+            arr = np.array([np.nan if x is None else x for x in t],
+                           dtype=float)
+            if phase_mask is not None and phase_feats is not None \
+                    and phase_feats[i] is not None:
+                phase = np.asarray(phase_feats[i], dtype=float)
+                mask_row = phase @ np.asarray(phase_mask, dtype=float)
+                arr = np.where(mask_row > 0, arr, np.nan)
+            arr = np.where(arr < cfg.spectra_target_floor,
+                           cfg.spectra_target_floor, arr)
+            total = np.nansum(arr)
+            arr = arr / total if total > 0 else arr
+            new_targets.append([None if np.isnan(x) else float(x)
+                                for x in arr])
+        ds.set_targets(new_targets)
+
+
+def _load_phase_mask(path: str) -> List[List[float]]:
+    """One row of 0/1 per phase, one column per spectrum position after
+    the phase name (reference spectra_utils.py:244-264)."""
+    with open(path) as f:
+        reader = csv.reader(f)
+        next(reader)
+        return [[float(v) for v in row[1:]] for row in reader]
 
 
 def _write_test_preds(save_dir: str, test_data, avg_preds) -> None:

@@ -14,10 +14,12 @@ setup(
     license="MIT",
     packages=find_packages(exclude=["tests", "tests.*"]),
     # polymer_chemprop_tpu_torch (the PyTorch/CUDA port) is found by
-    # find_packages; its CUDA and C++ sources are built at first use
+    # find_packages; its CUDA and C++ sources are built at first use, and
+    # it reads its own copy of the rdkit_2d_normalized CDF table
     package_data={"polymer_chemprop_tpu": ["py.typed"],
                   "polymer_chemprop_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
-                                                   "native/src/*"]},
+                                                   "native/src/*",
+                                                   "features/data/*.npz"]},
     entry_points={
         "console_scripts": [
             "chemprop_train=polymer_chemprop_tpu.cli:chemprop_train",

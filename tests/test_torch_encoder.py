@@ -181,12 +181,22 @@ def test_shared_encoder_round_trip():
 def test_unported_encoder_configs_raise(field):
     """What is not ported raises; what has been ported since (the
     plain-band options ``undirected``, ``bias`` and bfloat16 compute) builds
-    and takes the layer form its configuration implies, and
-    ``atom_messages`` builds W_i on the atom features and W_h on the
-    messages and the bond features."""
+    and takes the layer form its configuration implies, ``atom_messages``
+    builds W_i on the atom features and W_h on the messages and the bond
+    features, and ``atom_descriptors="descriptor"`` builds W_d with in =
+    out = H + D."""
     value = {"compute_dtype": "bfloat16",
              "atom_descriptors": "descriptor"}.get(field, True)
-    cfg = EncoderConfig(atom_fdim=133, bond_fdim=147, **{field: value})
+    extra = {"atom_descriptors_size": 5} \
+        if field == "atom_descriptors" else {}
+    cfg = EncoderConfig(atom_fdim=133, bond_fdim=147, **{field: value},
+                        **extra)
+    if field == "atom_descriptors":
+        enc = MoleculeModel(ModelConfig(encoder=cfg)).encoders[0]
+        H = cfg.hidden_size
+        assert enc.W_d.in_features == enc.W_d.out_features == H + 5
+        assert enc.W_d.bias is not None
+        return
     if field == "atom_messages":
         enc = MoleculeModel(ModelConfig(encoder=cfg)).encoders[0]
         assert enc.W_i.in_features == 133

@@ -41,7 +41,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "models.nn", "ops.probe_kernels", "probes.timing",
                  "probes.bench_batch", "probes.band_layer_probe",
                  "probes.fused_matmul_probe", "native_ext",
-                 "train.molecule_fingerprint"):
+                 "train.molecule_fingerprint", "features.generators",
+                 "features.utils", "chem.smarts", "chem.descriptors",
+                 "chem.descriptors.rdkit2d"):
         assert f"polymer_chemprop_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

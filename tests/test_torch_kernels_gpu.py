@@ -1009,3 +1009,76 @@ def test_atom_gather_rejects_bad_inputs(cuda):
                                              .long()))
     with pytest.raises(ValueError, match="contiguous"):
         band_mpnn.src_readout_sorted(h.t().contiguous().t(), a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("atom_messages", [False, True])
+def test_model_with_features_and_descriptors_card_against_cpu(
+        cuda, atom_messages):
+    """A whole model with molecule features, atom descriptors (W_d) and
+    extra bond features, forward and gradients, on the card against the
+    same model on the CPU (its kernels' plain versions), at "highest":
+    outputs rtol 1e-4, gradients 1e-4 of each gradient's largest entry.
+    The kernels of the path must launch: rows 1-3, or with
+    ``atom_messages`` the gather entry."""
+    from polymer_chemprop_tpu_torch.features import MolGraph, batch_graphs
+    from polymer_chemprop_tpu_torch.chem import parse_smiles
+    from polymer_chemprop_tpu_torch.models.encoder import (EncoderConfig,
+                                                           batch_to_tensors)
+    from polymer_chemprop_tpu_torch.models.init import init_model
+    from polymer_chemprop_tpu_torch.models.model import (ModelConfig,
+                                                         MoleculeModel)
+    from polymer_chemprop_tpu_torch.train.step import make_loss_fn
+    rng = np.random.default_rng(0)
+    Eb, D, F, H = 2, 4, 7, 64
+    graphs = [MolGraph(s, FeaturizationConfig(), bond_features_extra=rng.normal(
+        size=(parse_smiles(s).n_bonds, Eb))) for s in SMILES]
+    gb = batch_graphs(graphs, pad_mols=40)
+    bond_fdim = (0 if atom_messages else 133) + 14 + Eb
+    enc = EncoderConfig(atom_fdim=133, bond_fdim=bond_fdim, hidden_size=H,
+                        atom_messages=atom_messages,
+                        atom_descriptors="descriptor",
+                        atom_descriptors_size=D, band_precision="highest")
+    cfg = ModelConfig(encoder=enc, num_tasks=2, ffn_hidden_size=H,
+                      features_size=F, use_input_features=True,
+                      atom_descriptors="descriptor", atom_descriptors_size=D)
+    model = init_model(MoleculeModel(cfg), torch.Generator().manual_seed(0))
+    A = gb.f_atoms.shape[0]
+    desc = np.zeros((A, D), np.float32)
+    desc[1:gb.n_atoms_real] = rng.normal(size=(gb.n_atoms_real - 1, D))
+    inputs = dict(features=rng.normal(size=(40, F)).astype(np.float32),
+                  atom_descriptors=desc,
+                  targets=rng.normal(size=(40, 2)).astype(np.float32),
+                  mask=np.ones((40, 2), np.float32),
+                  weights=np.ones((40, 1), np.float32))
+    arrays = gb.arrays(sorted_aux=True)
+    outs = []
+    for dev in ("cpu", cuda):
+        m = MoleculeModel(cfg).to(dev)
+        m.load_state_dict(model.state_dict())
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+        batch["graphs"] = [batch_to_tensors(arrays, dev)]
+        band_mpnn.reset_launch_counts()
+        m.train()
+        loss = make_loss_fn(cfg)(m, batch)
+        loss.backward()
+        m.eval()
+        with torch.no_grad():
+            preds = m(batch["graphs"], features=batch["features"],
+                      atom_descriptors=batch["atom_descriptors"])
+        counts = band_mpnn.launch_counts()
+        grads = {n: p.grad.cpu() for n, p in m.named_parameters()}
+        outs.append((preds.cpu(), loss.item(), grads, counts))
+    (want, want_loss, want_grads, cpu_counts), (got, loss, grads, counts) = outs
+    assert not any(cpu_counts.values())
+    launched = ({"atom_neighbor_sum_sorted", "src_readout_sorted"}
+                if atom_messages else
+                {"band_rev_layer", "band_rev_bwd", "atom_readout"})
+    assert {k for k, v in counts.items() if v} == launched, counts
+    assert "encoders.0.W_d.weight" in grads
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-4)
+    for name, g in want_grads.items():
+        err = (grads[name] - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item() + 1e-6, (name, err)

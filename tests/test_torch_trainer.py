@@ -445,12 +445,33 @@ def test_merge_matching_matches_jax_package():
 ])
 def test_unported_training_options_raise(tmp_path, kw, match):
     """What is not ported raises. The plain-band options (``bias``,
-    ``undirected``, bfloat16) and ``atom_messages`` have been ported since:
-    they train (parity with the JAX package:
-    tests/test_torch_plain_band_train.py, tests/test_torch_atom_messages.py)."""
-    cfg = TrainConfig(data_path=REGRESSION, device="cpu",
-                      save_dir=str(tmp_path), **dict(SMALL, **kw))
-    if match in ("bias", "undirected", "bfloat16", "atom_messages"):
+    ``undirected``, bfloat16), ``atom_messages``, spectra training and the
+    extra features (generators, feature files, atom descriptors) have been
+    ported since: they train (parity with the JAX package:
+    tests/test_torch_plain_band_train.py, tests/test_torch_atom_messages.py,
+    tests/test_torch_extra_features.py)."""
+    kw = dict(kw)
+    if match == "spectra training":
+        kw.update(data_path=os.path.join(DATA, "spectra.csv"),
+                  phase_features_path=os.path.join(DATA,
+                                                   "spectra_features.csv"))
+    if match == "features_path":
+        kw["features_path"] = [os.path.join(DATA, "regression.npz")]
+    if match == "atom_descriptors":
+        rows = list(csv.reader(open(REGRESSION)))[:31]
+        data_csv = tmp_path / "data.csv"
+        with open(data_csv, "w", newline="") as f:
+            csv.writer(f).writerows(rows)
+        from polymer_chemprop_tpu_torch.chem import parse_smiles
+        rng = np.random.default_rng(0)
+        np.savez(tmp_path / "a.npz", *[
+            rng.normal(size=(parse_smiles(r[0]).n_atoms, 2))
+            for r in rows[1:]])
+        kw.update(data_path=str(data_csv),
+                  atom_descriptors_path=str(tmp_path / "a.npz"))
+    cfg = TrainConfig(**dict(dict(data_path=REGRESSION, device="cpu",
+                                  save_dir=str(tmp_path)), **SMALL, **kw))
+    if match not in ("tensorboard", "profile_dir", "data_parallel"):
         cfg.epochs = 1
         score, _ = cross_validate(cfg)
         assert np.isfinite(score)
