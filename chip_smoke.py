@@ -191,6 +191,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    step's loss and gradient norm 1e-4; test scores and per-epoch losses
    1e-2. Exact launch counts as in phases 3, 4 and 7.
 
+9. Entry points: at the same width, with deterministic algorithms on (so
+   that two card runs can be compared bit for bit). ``.pt``: a
+   ``best_model_full.pt`` exported with ``export_reference_checkpoint``
+   from a written checkpoint, beside a stale ``model_0.pt``, serves the
+   500 molecules equal to the ``.ckpt``'s bit for bit; a 1-epoch
+   ``cross_validate`` takes ``model_0.pt`` (the SSL script's
+   weights-only shape) as ``checkpoint_frzn`` with a frozen encoder,
+   which stays unchanged bit for bit. A 2-epoch ``cross_validate`` with
+   ``tensorboard`` and ``profile_dir`` gives the same score bit for bit
+   as without them, its trace names rows 1, 2 and 3 (``tensorboard``'s
+   presence is printed, not required). ``ssl_pretrain`` on the 200
+   copolymers (2 + 2 epochs, ``val_frac`` 0.1, graph embeddings) with
+   exact launch counts; its first masked step on the card against the CPU
+   on the same draws and weights (loss and gradient norm 1e-4); a cached
+   stage-1 epoch's steps/s and idle share; the transfer into a frozen
+   encoder. ``hyperopt`` (3 start-up trials, 1 epoch, the first 100
+   molecules; seed 0 draws hidden 1,500, so rows 5 and 6 run) on the card
+   and the CPU: the same trials, each trial's seconds. A classifier
+   trained 2 epochs on classification.csv, then ``interpret`` on 5 of its
+   molecules with rollout 20 on the card and the CPU: scores 1e-4, the
+   rationales compared, seconds a molecule and ``make_predictions``
+   calls. The web app in a thread: upload regression.csv, train 2 epochs
+   and predict 10 SMILES through HTTP (``/progress`` read, ``"error"``
+   raises), equal to ``make_predictions`` bit for bit.
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -2542,6 +2567,547 @@ def extra_features_path(card):
     return launches, tc_launches
 
 
+# -- phase 9 ----------------------------------------------------------------
+
+def _tally(total, counts):
+    for k in total:
+        total[k] += counts[k]
+
+
+def _encoder_leaves(ckpt):
+    from polymer_chemprop_tpu_torch.utils.checkpoint import load_checkpoint
+    enc = load_checkpoint(ckpt)[0]["encoders"][0]
+    return {f"{name}/{k}": v for name in sorted(enc)
+            for k, v in enc[name].items()}
+
+
+def _check_frozen(ckpt, frzn, what):
+    trained, want = _encoder_leaves(ckpt), _encoder_leaves(frzn)
+    check(trained.keys() == want.keys(), f"{what}: encoder keys")
+    check(all(np.array_equal(trained[k], want[k]) for k in want),
+          f"{what}: the frozen encoder changed")
+
+
+def pt_runs(card, reg_csv, reg_ckpt, launches, tc_launches):
+    """Serve from a reference ``.pt`` directory and warm-start from the
+    SSL script's weights-only shape."""
+    import shutil
+
+    from polymer_chemprop_tpu_torch.config import PredictConfig, TrainConfig
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    from polymer_chemprop_tpu_torch.train.make_predictions import (
+        make_predictions,
+    )
+    from polymer_chemprop_tpu_torch.utils.checkpoint import load_checkpoint
+    from polymer_chemprop_tpu_torch.utils.torch_import import (
+        export_reference_checkpoint,
+    )
+    out = os.path.join(OUT_DIR, "entry", "pt")
+    shutil.rmtree(out, ignore_errors=True)
+    pt_dir = os.path.join(out, "fold_0")
+    os.makedirs(pt_dir, exist_ok=True)
+    params, config, scalers, _ = load_checkpoint(reg_ckpt)
+    export_reference_checkpoint(os.path.join(pt_dir, "best_model_full.pt"),
+                                params, config, scalers)
+    # a stale resume file beside it, with other weights and no args
+    enc = params["encoders"][0]
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a.T)) * 0.5
+    torch.save({"model_state_dict": {
+        "W_initial.weight": T(enc["W_i"]["w"]),
+        "W_message.weight": T(enc["W_h"]["w"]),
+        "W_node.weight": T(enc["W_o"]["w"]),
+        "W_node.bias": torch.from_numpy(enc["W_o"]["b"].copy())},
+        "epoch": 3}, os.path.join(pt_dir, "model_0.pt"))
+
+    def serve(tag, **where):
+        bm.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = np.asarray(make_predictions(PredictConfig(
+            test_path=reg_csv, preds_path=os.path.join(out, f"{tag}.csv"),
+            batch_size=BATCH_SIZE, num_workers=4, device="cuda", **where)))
+        torch.cuda.synchronize()
+        return got, bm.launch_counts(), bm.tc_launch_counts(), \
+            time.perf_counter() - t0
+
+    want, _, _, _ = serve("ckpt", checkpoint_path=reg_ckpt)
+    got, counts, tc, seconds = serve("pt", checkpoint_dir=out)
+    _tally(launches, counts)
+    _tally(tc_launches, tc)
+    n = got.shape[0]
+    check(counts["band_rev_layer"] == (DEPTH - 1) * math.ceil(n / BATCH_SIZE)
+          and counts["atom_readout"] == math.ceil(n / BATCH_SIZE), counts)
+    check(got.shape == want.shape == (n, 1) and np.isfinite(got).all(),
+          (got.shape, want.shape))
+    check(np.array_equal(got, want),
+          f".pt predictions differ from the .ckpt's: max "
+          f"{np.abs(got - want).max():.3e}")
+    log(f"[entry] .pt: {n} molecules served from best_model_full.pt (a "
+        f"stale model_0.pt beside it), equal to the .ckpt's bit for bit, "
+        f"launches {counts}, {seconds:.3f} s end to end on {card}")
+
+    # warm start from the SSL script's shape: a frozen encoder
+    frzn = os.path.join(pt_dir, "model_0.pt")
+    cfg = TrainConfig(data_path=reg_csv, dataset_type="regression",
+                      hidden_size=HIDDEN, depth=DEPTH, ffn_num_layers=2,
+                      ffn_hidden_size=HIDDEN, epochs=1, batch_size=BATCH_SIZE,
+                      seed=SEED, num_workers=4, quiet=True, device="cuda",
+                      checkpoint_frzn=frzn, frzn_encoder=True,
+                      save_dir=os.path.join(out, "warm"))
+    bm.reset_launch_counts()
+    score, _ = cross_validate(cfg)
+    counts = bm.launch_counts()
+    _tally(launches, counts)
+    _tally(tc_launches, bm.tc_launch_counts())
+    check(np.isfinite(score) and counts["band_rev_bwd"] > 0, counts)
+    _check_frozen(os.path.join(cfg.save_dir, "fold_0", "model_0",
+                               "best_model.ckpt"), frzn, ".pt checkpoint_frzn")
+    log(f"[entry] .pt: 1-epoch cross_validate from checkpoint_frzn "
+        f"model_0.pt (SSL script shape, frozen encoder unchanged bit for "
+        f"bit): test rmse {score:.6f}, launches {counts}")
+
+
+def tensorboard_profile_runs(card, reg_csv, launches, tc_launches):
+    """A 2-epoch run with ``tensorboard`` and ``profile_dir``, against the
+    same run without either."""
+    import importlib.util
+    import shutil
+
+    from polymer_chemprop_tpu_torch.config import TrainConfig
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    out = os.path.join(OUT_DIR, "entry", "tb")
+    profile_dir = os.path.join(out, "profile")
+    shutil.rmtree(out, ignore_errors=True)
+    tb_importable = importlib.util.find_spec("tensorboard") is not None
+    log(f"[entry] tensorboard importable: {tb_importable}")
+    scores = {}
+    for sub, extra in (("with", dict(tensorboard=True,
+                                     profile_dir=profile_dir)),
+                       ("without", {})):
+        cfg = TrainConfig(data_path=reg_csv, dataset_type="regression",
+                          hidden_size=HIDDEN, depth=DEPTH, ffn_num_layers=2,
+                          ffn_hidden_size=HIDDEN, epochs=2,
+                          batch_size=BATCH_SIZE, seed=SEED, num_workers=4,
+                          quiet=True, device="cuda",
+                          save_dir=os.path.join(out, sub), **extra)
+        bm.reset_launch_counts()
+        t0 = time.perf_counter()
+        scores[sub], _ = cross_validate(cfg)
+        seconds = time.perf_counter() - t0
+        counts = bm.launch_counts()
+        _tally(launches, counts)
+        _tally(tc_launches, bm.tc_launch_counts())
+        log(f"[entry] 2-epoch cross_validate {sub} tensorboard and "
+            f"profile_dir: test rmse {scores[sub]!r}, {seconds:.3f} s end to "
+            f"end, launches {counts} on {card}")
+    check(scores["with"] == scores["without"],
+          f"the profiler changed the score: {scores}")
+    model_dir = os.path.join(out, "with", "fold_0", "model_0")
+    events = [f for f in os.listdir(model_dir)
+              if f.startswith("events.out.tfevents")]
+    check(bool(events) == tb_importable, f"event files {events}")
+    traces = sorted(os.listdir(profile_dir))
+    check(len(traces) == 1, f"traces {traces}")
+    with open(os.path.join(profile_dir, traces[0])) as f:
+        trace = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in trace
+               if str(e.get("cat", "")).lower() == "kernel"}
+    named = {k: sum(k in name for name in kernels) for k in
+             ("band_rev_layer", "band_rev_bwd", "atom_readout")}
+    check(all(named.values()),
+          f"the trace names no kernel of rows 1-3: {sorted(kernels)[:20]}")
+    log(f"[entry] profile_dir trace {traces[0]}: {len(kernels)} distinct "
+        f"kernels, rows 1-3 named {named}; scores with and without equal "
+        f"bit for bit; {len(events)} TensorBoard event file(s)")
+
+
+def ssl_runs(card, poly_csv, poly_train_csv, launches, tc_launches):
+    """``ssl_pretrain`` on the card, its first masked step against the
+    CPU, a stage-1 epoch's rate and idle share, and the transfer into a
+    frozen encoder."""
+    import shutil
+
+    from polymer_chemprop_tpu_torch import ssl as ssl_mod
+    from polymer_chemprop_tpu_torch.config import TrainConfig
+    from polymer_chemprop_tpu_torch.data import MoleculeDataLoader
+    from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    out = os.path.join(OUT_DIR, "entry", "ssl")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = ssl_mod.SSLConfig(
+        data_path=poly_csv, save_dir=out, hidden_size=HIDDEN, depth=DEPTH,
+        epochs_stage1=2, epochs_stage2=2, batch_size=BATCH_SIZE,
+        val_frac=0.1, save_graph_embeddings=True, seed=SEED, quiet=True,
+        device="cuda")
+    bm.reset_launch_counts()
+    t0 = time.perf_counter()
+    ckpt = ssl_mod.ssl_pretrain(cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, tc = bm.launch_counts(), bm.tc_launch_counts()
+    _tally(launches, counts)
+    _tally(tc_launches, tc)
+    n_val = int(N_POLYMERS * cfg.val_frac)
+    train_batches = math.ceil((N_POLYMERS - n_val) / BATCH_SIZE)
+    val_batches = math.ceil(n_val / BATCH_SIZE)
+    epochs = cfg.epochs_stage1 + cfg.epochs_stage2
+    steps = epochs * train_batches
+    forwards = steps + epochs * val_batches + train_batches  # + embeddings
+    check(counts["band_rev_layer"] == (DEPTH - 1) * forwards
+          and counts["band_rev_bwd"] == (DEPTH - 1) * steps
+          and counts["atom_readout"] == forwards, counts)
+    # the masked steps on the FP32 entry, the embeddings at "high"
+    check(tc["band_rev_layer"] == (DEPTH - 1) * train_batches, tc)
+    emb = np.load(os.path.join(out, "ssl_graph_embeddings.npy"))
+    check(emb.shape == (N_POLYMERS - n_val, HIDDEN)
+          and np.isfinite(emb).all(), f"embeddings {emb.shape}")
+    log(f"[entry] ssl_pretrain: {N_POLYMERS} copolymers ({n_val} held "
+        f"out), {epochs} epochs, {steps} steps, launches {counts} "
+        f"(tensor cores {tc}), {seconds:.3f} s end to end on {card}")
+
+    # the first masked step, card against CPU, same draws and weights
+    fcfg, data, _ = ssl_mod.load_ssl_data(cfg)
+    labels_all = ssl_mod.molecular_weight_label(data, fcfg)
+    enc_cfg = ssl_mod.ssl_encoder_config(cfg, fcfg)
+    init = ssl_mod.init_ssl_model(enc_cfg, cfg.seed)
+    loader = MoleculeDataLoader(data, fcfg, batch_size=BATCH_SIZE,
+                                num_workers=4)
+    first = next(iter(loader))
+    labels = np.zeros(BATCH_SIZE, np.float32)
+    labels[:first.size] = labels_all[:first.size]
+    arrays = first.graph_arrays[0]
+    draws = ssl_mod.draw_masks(torch.Generator().manual_seed(1),
+                               arrays["f_atoms"].shape[0],
+                               arrays["f_bonds"].shape[0], False)
+    results, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        model = ssl_mod.SSLModel(enc_cfg).to(device)
+        model.load_state_dict(init.state_dict())
+        step = ssl_mod.make_ssl_step(cfg, model)
+        bm.reset_launch_counts()
+        loss, gnorm = step(batch_to_tensors(arrays, device),
+                           torch.as_tensor(labels, device=device),
+                           {k: v.to(device) for k, v in draws.items()},
+                           False)
+        results[device] = (float(loss), float(gnorm))
+        grads[device] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        step_counts = bm.launch_counts()
+        check(step_counts["band_rev_layer"] == step_counts["band_rev_bwd"]
+              == (DEPTH - 1 if device == "cuda" else 0), step_counts)
+    grad_err = max(((grads["cuda"][n] - g).abs().max()
+                    / g.abs().max().clamp(min=1e-30)).item()
+                   for n, g in grads["cpu"].items())
+    log(f"[entry] ssl first masked step (loss, gnorm) gpu {results['cuda']!r}"
+        f" cpu {results['cpu']!r}; gradients within {grad_err:.3e} of each "
+        f"one's largest entry")
+    np.testing.assert_allclose(results["cuda"], results["cpu"], rtol=1e-4)
+
+    # a stage-1 epoch, graphs cached: rate and the device's idle share
+    model = ssl_mod.SSLModel(enc_cfg).to("cuda")
+    model.load_state_dict(init.state_dict())
+    step = ssl_mod.make_ssl_step(cfg, model)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+
+    def epoch():
+        t0 = time.perf_counter()
+        _, n = ssl_mod.ssl_epoch(step, loader, labels_all, "cuda", gen,
+                                 False, 1.0)
+        return time.perf_counter() - t0, n
+
+    epoch()
+    wall, n = epoch()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        epoch()
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()) * 1e-6
+    idle = f"idle share {100 * (1 - busy / wall):.1f}%" if busy > 0 else \
+        "device busy time not measured (the profiler gave no device time)"
+    log(f"[entry] ssl stage-1 epoch, graphs cached: {n} steps in "
+        f"{1e3 * wall:.1f} ms ({n / wall:.1f} steps/s); device busy "
+        f"{1e3 * busy:.2f} ms in the profiled epoch, {idle} on {card}")
+
+    # the transfer: a frozen encoder, unchanged bit for bit
+    tcfg = TrainConfig(data_path=poly_train_csv, dataset_type="regression",
+                       polymer=True, hidden_size=HIDDEN, depth=DEPTH,
+                       ffn_num_layers=2, ffn_hidden_size=HIDDEN, epochs=1,
+                       batch_size=BATCH_SIZE, seed=SEED, num_workers=4,
+                       quiet=True, device="cuda", checkpoint_frzn=ckpt,
+                       frzn_encoder=True,
+                       save_dir=os.path.join(out, "downstream"))
+    bm.reset_launch_counts()
+    score, _ = cross_validate(tcfg)
+    counts = bm.launch_counts()
+    _tally(launches, counts)
+    _tally(tc_launches, bm.tc_launch_counts())
+    check(np.isfinite(score), score)
+    _check_frozen(os.path.join(tcfg.save_dir, "fold_0", "model_0",
+                               "best_model.ckpt"), ckpt, "SSL transfer")
+    log(f"[entry] ssl transfer: 1-epoch cross_validate with checkpoint_frzn "
+        f"and frzn_encoder, encoder unchanged bit for bit, test rmse "
+        f"{score:.6f}, launches {counts}")
+
+
+def hyperopt_runs(card, reg_csv, launches, tc_launches):
+    """``hyperopt`` (3 start-up trials, 1 epoch, 100 molecules) on the card
+    and on the CPU: the same trials; seed 0 draws a trial of hidden 1,500,
+    above the fused layer's 1,495, so rows 5 and 6 run here."""
+    import shutil
+
+    from polymer_chemprop_tpu_torch import hyperparameter_optimization as hopt
+    from polymer_chemprop_tpu_torch.config import TrainConfig
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    out = os.path.join(OUT_DIR, "entry", "hyperopt")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    data = os.path.join(out, "data.csv")
+    with open(reg_csv) as f:
+        lines = f.readlines()[:101]
+    with open(data, "w") as f:
+        f.writelines(lines)
+    trial_s = []
+    cross_validate = hopt.cross_validate
+
+    def timed(cfg):
+        t0 = time.perf_counter()
+        result = cross_validate(cfg)
+        if cfg.device == "cuda":
+            torch.cuda.synchronize()
+        trial_s.append((cfg.device, cfg.hidden_size, cfg.depth,
+                        time.perf_counter() - t0))
+        return result
+
+    hopt.cross_validate = timed
+    trials = {}
+    try:
+        for device in ("cuda", "cpu"):
+            cfg = TrainConfig(data_path=data, dataset_type="regression",
+                              epochs=1, seed=SEED, batch_size=BATCH_SIZE,
+                              num_workers=4, quiet=True, device=device,
+                              save_dir=os.path.join(out, device))
+            bm.reset_launch_counts()
+            hopt.hyperopt(cfg, num_iters=3)
+            counts = bm.launch_counts()
+            if device == "cuda":
+                _tally(launches, counts)
+                _tally(tc_launches, bm.tc_launch_counts())
+                cuda_counts = counts
+            trials[device] = [t["params"] for t in hopt.load_trials(
+                os.path.join(cfg.save_dir, "hyperopt_trials"))]
+    finally:
+        hopt.cross_validate = cross_validate
+    check(len(trials["cuda"]) == 3 and trials["cuda"] == trials["cpu"],
+          f"trials differ: {trials}")
+    check(any(p["hidden_size"] > 1495 for p in trials["cuda"]),
+          "no trial wider than the fused layer")
+    check(all(cuda_counts[k] > 0 for k in ("band_agg", "band_bwd",
+                                           "band_rev_layer", "band_rev_bwd",
+                                           "atom_readout")), cuda_counts)
+    for device, hidden, depth, seconds in trial_s:
+        log(f"[entry] hyperopt trial on {device}: hidden {hidden}, depth "
+            f"{depth}, {seconds:.3f} s (1 epoch, 100 molecules)"
+            + (f" on {card}" if device == "cuda" else ""))
+    log(f"[entry] hyperopt: trials equal on card and CPU {trials['cuda']}; "
+        f"card launches {cuda_counts}")
+
+
+def interpret_runs(card, launches, tc_launches):
+    """Train a classifier (2 epochs), then interpret 5 molecules with
+    rollout 20 on the card and on the CPU."""
+    import shutil
+
+    from polymer_chemprop_tpu_torch import interpret as interp
+    from polymer_chemprop_tpu_torch.config import PredictConfig, TrainConfig
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    out = os.path.join(OUT_DIR, "entry", "interpret")
+    shutil.rmtree(out, ignore_errors=True)
+    cls_csv = os.path.join(ROOT, "tests", "data", "classification.csv")
+    cfg = TrainConfig(data_path=cls_csv, dataset_type="classification",
+                      hidden_size=HIDDEN, depth=DEPTH, ffn_num_layers=2,
+                      ffn_hidden_size=HIDDEN, epochs=2, batch_size=BATCH_SIZE,
+                      seed=SEED, num_workers=4, quiet=True, device="cuda",
+                      save_dir=os.path.join(out, "train"))
+    bm.reset_launch_counts()
+    score, _ = cross_validate(cfg)
+    counts = bm.launch_counts()
+    _tally(launches, counts)
+    _tally(tc_launches, bm.tc_launch_counts())
+    check(np.isfinite(score), score)
+    test_csv = os.path.join(out, "interpret.csv")
+    with open(test_csv, "w") as f:
+        f.write("smiles\n" + "\n".join(read_smiles(cls_csv)[:5]) + "\n")
+    calls = [0]
+    make_predictions = interp.make_predictions
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return make_predictions(*args, **kwargs)
+
+    interp.make_predictions = counted
+    results = {}
+    try:
+        for device in ("cuda", "cpu"):
+            calls[0] = 0
+            bm.reset_launch_counts()
+            t0 = time.perf_counter()
+            results[device] = interp.interpret(
+                PredictConfig(checkpoint_dir=cfg.save_dir, device=device),
+                test_csv, property_id=1, rollout=20, prop_delta=0.0,
+                writer=lambda line: None)
+            seconds = time.perf_counter() - t0
+            if device == "cuda":
+                counts = bm.launch_counts()
+                _tally(launches, counts)
+                _tally(tc_launches, bm.tc_launch_counts())
+                check(counts["band_rev_layer"] > 0, counts)
+            log(f"[entry] interpret on {device}: 5 molecules, rollout 20, "
+                f"{seconds / 5:.3f} s per molecule, {calls[0]} "
+                f"make_predictions calls"
+                + (f", launches {counts} on {card}" if device == "cuda"
+                   else ""))
+    finally:
+        interp.make_predictions = make_predictions
+    got, want = results["cuda"], results["cpu"]
+    check(len(got) == len(want) == 5, (got, want))
+    np.testing.assert_allclose([r[1] for r in got], [r[1] for r in want],
+                               rtol=1e-4)
+    same = [g[2] == w[2] for g, w in zip(got, want)]
+    log(f"[entry] interpret: scores within 1e-4 of the CPU's; rationales "
+        f"equal for {sum(same)} of 5: {[r[2] for r in got]}")
+
+
+def web_runs(card, reg_csv, launches, tc_launches):
+    """The web app on the card: upload, train 2 epochs and predict 10
+    SMILES through HTTP."""
+    import http.client
+    import re
+    import shutil
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from polymer_chemprop_tpu_torch.config import PredictConfig
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.make_predictions import (
+        make_predictions,
+    )
+    from polymer_chemprop_tpu_torch.web.app import build_app
+    root = os.path.join(OUT_DIR, "entry", "web")
+    shutil.rmtree(root, ignore_errors=True)
+    handler, state = build_app(root)
+    check(state.device == "cuda", state.device)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_address[1]
+
+    def request(method, path, fields=None):
+        body, headers = None, {}
+        if fields is not None:
+            parts = [f"--XxX\r\nContent-Disposition: form-data; "
+                     f'name="{k}"\r\n\r\n'.encode()
+                     + (v if isinstance(v, bytes) else str(v).encode())
+                     + b"\r\n" for k, v in fields.items()]
+            body = b"".join(parts) + b"--XxX--\r\n"
+            headers["Content-Type"] = "multipart/form-data; boundary=XxX"
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, data
+
+    smiles = read_smiles(reg_csv)[:10]
+    try:
+        bm.reset_launch_counts()
+        t0 = time.perf_counter()
+        with open(reg_csv, "rb") as f:
+            status, _ = request("POST", "/upload_data", {
+                "name": "regression", "class": "regression",
+                "file": f.read()})
+        check(status == 303, f"upload: HTTP {status}")
+        ds = state.db.datasets()[0]
+        status, body = request("POST", "/train", {
+            "dataset_id": ds["id"], "ckpt_name": "smoke",
+            "dataset_type": "regression", "epochs": 2})
+        check(status == 200, f"train: HTTP {status}")
+        ckpt_id = json.loads(body)["ckpt_id"]
+        while True:
+            status, body = request("GET", f"/progress/{ckpt_id}")
+            progress = json.loads(body)
+            if progress["state"] == "error":
+                raise RuntimeError(f"web training failed: {progress}")
+            if progress["state"] == "done":
+                break
+            time.sleep(0.5)
+        train_s = time.perf_counter() - t0
+        status, body = request("POST", "/predict", {
+            "ckpt_id": ckpt_id, "smiles": "\n".join(smiles)})
+        check(status == 200, f"predict: HTTP {status}")
+        counts = bm.launch_counts()
+        _tally(launches, counts)
+        _tally(tc_launches, bm.tc_launch_counts())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    cells = re.findall(r"<td>\[([^\]]*)\]</td>", body.decode())
+    got = [[float(x) for x in c.split(",")] for c in cells]
+    want = make_predictions(PredictConfig(
+        checkpoint_dir=state.db.ckpt(ckpt_id)["save_dir"], device="cuda"),
+        smiles=[[s] for s in smiles])
+    check(len(got) == 10 and got == want,
+          f"web predictions differ from make_predictions: {got} {want}")
+    check(counts["band_rev_bwd"] > 0 and counts["band_rev_layer"] > 0,
+          counts)
+    log(f"[entry] web: upload + 2-epoch training through HTTP in "
+        f"{train_s:.3f} s (mean score {progress['mean_score']:.6f}); 10 "
+        f"SMILES predicted through HTTP equal make_predictions bit for bit; "
+        f"launches {counts} on {card}")
+
+
+def entry_points_path(card):
+    """Phase 9: the remaining entry points on the card at full width
+    (hidden 300, depth 3, FFN 2 x 300, relu, mean, batch 50, C++
+    featurizer). Deterministic algorithms are on for the phase
+    (``index_add_`` then sums in a fixed order), so that two card runs
+    can be compared bit for bit. Returns the launches and the tensor-core
+    launches."""
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+    tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
+    reg_csv = os.path.join(ROOT, "tests", "data", "regression.csv")
+    poly_csv = os.path.join(OUT_DIR, "polymers.csv")
+    poly_train_csv = os.path.join(OUT_DIR, "polymers_train.csv")
+    polymer_csv(poly_csv)
+    polymer_csv(poly_train_csv, with_target=True)
+    reg_ckpt = os.path.join(OUT_DIR, "entry", "regression", "model.ckpt")
+    write_checkpoint(reg_ckpt, polymer=False, hidden=HIDDEN)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # the mode would also fill every torch.empty with NaN; keep allocation
+    # as on the other paths
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    with warnings.catch_warnings():
+        # cuBLAS has no deterministic switch without a workspace setting;
+        # its products are deterministic on one stream
+        warnings.filterwarnings("ignore", message=".*deterministic.*")
+        pt_runs(card, reg_csv, reg_ckpt, launches, tc_launches)
+        tensorboard_profile_runs(card, reg_csv, launches, tc_launches)
+        ssl_runs(card, poly_csv, poly_train_csv, launches, tc_launches)
+        hyperopt_runs(card, reg_csv, launches, tc_launches)
+        interpret_runs(card, launches, tc_launches)
+        web_runs(card, reg_csv, launches, tc_launches)
+    torch.use_deterministic_algorithms(False)
+    log(f"[entry] phase 9 launches {launches} (tensor cores {tc_launches}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, tc_launches
+
+
 def main() -> int:
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
@@ -2563,11 +3129,13 @@ def main() -> int:
     plain_band, plain_band_tc = plain_band_path(card, dev)
     atom_messages = atom_messages_path(card)
     features, features_tc = extra_features_path(card)
+    entry, entry_tc = entry_points_path(card)
     for counts in (fingerprint, training, plain_band, atom_messages,
-                   features, probe_path(card, dev, gb, results)):
+                   features, entry, probe_path(card, dev, gb, results)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
-    for counts in (fingerprint_tc, training_tc, plain_band_tc, features_tc):
+    for counts in (fingerprint_tc, training_tc, plain_band_tc, features_tc,
+                   entry_tc):
         for name, count in counts.items():
             tc_launches[name] += count
     check(all(count > 0 for count in launches.values()),

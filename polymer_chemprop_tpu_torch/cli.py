@@ -7,13 +7,21 @@ Usage:
         --checkpoint_dir ... --preds_path ... [--device cuda|cpu]
     python -m polymer_chemprop_tpu_torch.cli fingerprint --test_path ... \
         --checkpoint_dir ... --preds_path ... [--fingerprint_type MPN|last_FFN]
+    python -m polymer_chemprop_tpu_torch.cli hyperopt --data_path ... \
+        --dataset_type ... --num_iters N [--device cuda|cpu]
+    python -m polymer_chemprop_tpu_torch.cli interpret --data_path ... \
+        --checkpoint_dir ... [--device cuda|cpu]
+    python -m polymer_chemprop_tpu_torch.cli ssl_pretrain --data_path ... \
+        --save_dir ... [--device cuda|cpu]
+    python -m polymer_chemprop_tpu_torch.cli web --port 5000 [--device cuda|cpu]
 
-All three run on the GPU (``--device cuda``, the default; without a GPU
-they raise) or, when asked, on the CPU with the kernels' plain PyTorch
-versions. Each featurizes with the C++ library of native_ext.py (built
-with g++ at first use); ``--no_use_native_featurizer`` takes the Python
-featurizer instead.
-The other subcommands of polymer_chemprop_tpu.cli are not on the port yet.
+Each runs on the GPU (``--device cuda``, the default; without a GPU it
+raises) or, when asked, on the CPU with the kernels' plain PyTorch
+versions. Checkpoint directories may hold the JAX package's ``.ckpt``
+files or reference torch ``.pt`` files. Featurization uses the C++ library
+of native_ext.py (built with g++ at first use);
+``--no_use_native_featurizer`` takes the Python featurizer instead.
+``sklearn_train`` and ``sklearn_predict`` are not on the port.
 """
 
 from __future__ import annotations
@@ -37,6 +45,22 @@ def main(argv: Optional[List[str]] = None) -> None:
     elif cmd == "fingerprint":
         from .train.molecule_fingerprint import chemprop_fingerprint
         chemprop_fingerprint(rest)
+    elif cmd == "hyperopt":
+        from .hyperparameter_optimization import chemprop_hyperopt
+        chemprop_hyperopt(rest)
+    elif cmd == "interpret":
+        from .interpret import chemprop_interpret
+        chemprop_interpret(rest)
+    elif cmd == "ssl_pretrain":
+        from .ssl import ssl_pretrain_cli
+        ssl_pretrain_cli(rest)
+    elif cmd == "web":
+        from .web.app import chemprop_web
+        chemprop_web(rest)
+    elif cmd in ("sklearn_train", "sklearn_predict"):
+        print(f"{cmd} is not on the port (see ROADMAP.md); use "
+              f"polymer_chemprop_tpu.cli {cmd}", file=sys.stderr)
+        sys.exit(1)
     else:
         print(f"unknown command {cmd!r}\n{__doc__}")
         sys.exit(1)

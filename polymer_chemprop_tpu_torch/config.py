@@ -284,10 +284,10 @@ def find_checkpoints(checkpoint_dir: Optional[str] = None,
                      checkpoint_path: Optional[str] = None,
                      checkpoint_paths: Optional[List[str]] = None,
                      ext: str = ".ckpt") -> List[str]:
-    """Checkpoint discovery by directory walk (reference args.py:19-59).
-
-    Only the JAX package's native ``.ckpt`` format is read; importing
-    reference torch ``.pt`` checkpoints is not on the port yet."""
+    """Checkpoint discovery by directory walk (reference args.py:19-59):
+    native ``.ckpt`` files first; else ``best_model_full.pt`` alone where
+    the directory has one (the only reference shape with args and
+    scalers, reference run_training.py:424-435); else every ``.pt``."""
     provided = sum(x is not None for x in
                    (checkpoint_dir, checkpoint_path, checkpoint_paths))
     if provided > 1:
@@ -298,20 +298,22 @@ def find_checkpoints(checkpoint_dir: Optional[str] = None,
     if checkpoint_paths is not None:
         return checkpoint_paths
     if checkpoint_dir is not None:
-        found, torch_pt = [], []
+        native, torch_pt = [], []
         for root, _, files in os.walk(checkpoint_dir):
             for fname in files:
                 if fname.endswith(ext):
-                    found.append(os.path.join(root, fname))
+                    native.append(os.path.join(root, fname))
                 elif fname.endswith(".pt"):
                     torch_pt.append(os.path.join(root, fname))
-        if not found and torch_pt:
-            raise NotImplementedError(
-                f"{checkpoint_dir} holds only reference torch .pt "
-                "checkpoints; importing them is not on the port yet")
+        found = native
+        if not found:
+            best = [p for p in torch_pt
+                    if os.path.basename(p) == "best_model_full.pt"]
+            found = best or torch_pt
         if len(found) == 0:
             raise ValueError(f'Failed to find any checkpoints with extension '
-                             f'"{ext}" in directory "{checkpoint_dir}"')
+                             f'"{ext}" or ".pt" in directory '
+                             f'"{checkpoint_dir}"')
         return sorted(found)
     return []
 

@@ -24,7 +24,12 @@ chains that train/scheduler.py builds the list is
 * sgd: ``[count]``.
 
 ``clip_by_global_norm``, ``add_decayed_weights`` and ``set_to_zero`` carry
-no leaves. :func:`opt_state_to_leaves` and :func:`opt_state_from_leaves`
+no leaves.
+
+The SSL pretraining model (ssl.py) has its own tree (JAX ssl.py:103-114):
+``{"encoder": {W_i, W_h, W_o}, "node_head": {...}, "edge_head": {...},
+"graph_head": [{...}, {...}]}``; :func:`ssl_params_from_jax` and
+:func:`ssl_params_to_jax` carry it the same way. :func:`opt_state_to_leaves` and :func:`opt_state_from_leaves`
 map that list to and from a ``torch.optim`` optimizer's state.
 """
 
@@ -106,6 +111,41 @@ def load_jax_params(model: MoleculeModel, params: Dict) -> MoleculeModel:
     model.load_state_dict(params_from_jax(params, model.cfg.mpn_shared),
                           strict=True)
     return model
+
+
+_SSL_HEADS = ("node_head", "edge_head")
+
+
+def ssl_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX SSL parameter tree (numpy leaves) -> SSLModel state dict."""
+    state: Dict[str, torch.Tensor] = {}
+    for name in _ENCODER_LINEARS:
+        if name in params["encoder"]:
+            state.update(_linear_state(f"encoder.{name}",
+                                       params["encoder"][name]))
+    for name in _SSL_HEADS:
+        state.update(_linear_state(name, params[name]))
+    for j, layer in enumerate(params["graph_head"]):
+        state.update(_linear_state(f"graph_head.{j}", layer))
+    return state
+
+
+def ssl_params_to_jax(model) -> Dict:
+    """SSLModel -> JAX SSL parameter tree (numpy leaves), the inverse of
+    :func:`ssl_params_from_jax`."""
+    def linear(mod: torch.nn.Linear) -> Dict:
+        p = {"w": _to_jax_layout(mod.weight)}
+        if mod.bias is not None:
+            p["b"] = _to_jax_layout(mod.bias)
+        return p
+
+    tree = {"encoder": {name: linear(getattr(model.encoder, name))
+                        for name in _ENCODER_LINEARS
+                        if hasattr(model.encoder, name)},
+            "graph_head": [linear(l) for l in model.graph_head]}
+    for name in _SSL_HEADS:
+        tree[name] = linear(getattr(model, name))
+    return tree
 
 
 def _sorted_leaves(tree) -> List:

@@ -214,9 +214,27 @@ class MPNEncoder(nn.Module):
                                 aggregation=cfg.aggregation,
                                 aggregation_norm=cfg.aggregation_norm)
 
+    def encode_parts(self, batch: Dict[str, torch.Tensor]):
+        """``(message, atom_hiddens)``: the final bond messages ``(B, H)``
+        in the batch's bond order (dst-sorted with ``"sorted_aux"``) and
+        the atom hiddens ``(A, H)``, with no dropout whatever the mode,
+        as the JAX package's SSL heads read them (JAX ssl.py:161-180). Bond
+        messages only."""
+        bf16 = self.cfg.compute_dtype == "bfloat16"
+        message, a_message = self._bond_message_passing(
+            batch, lambda x: x, bf16)
+        atom_hiddens = self.act(linear(
+            self.W_o, torch.cat([batch["f_atoms"], a_message], 1), bf16))
+        return message, atom_hiddens
+
     def _bond_messages(self, batch, drop, bf16: bool) -> torch.Tensor:
         """The bond-message depth loop and readout (module docstring) ->
         a_message (A, H)."""
+        return self._bond_message_passing(batch, drop, bf16)[1]
+
+    def _bond_message_passing(self, batch, drop, bf16: bool):
+        """-> ``(message, a_message)``: the final bond messages and their
+        atom readout."""
         cfg = self.cfg
         num_atoms = batch["f_atoms"].shape[0]
         inputs = linear(self.W_i, batch["f_bonds"], bf16)
@@ -249,8 +267,8 @@ class MPNEncoder(nn.Module):
                     message = band_message_step_sorted(message, aux)
                     message = self.act(inputs + linear(self.W_h, message, bf16))
                 message = drop(message)
-            return atom_readout_sorted(message, aux["w_sorted"],
-                                       aux["rowptr"], aux["dst_sorted"])
+            return message, atom_readout_sorted(
+                message, aux["w_sorted"], aux["rowptr"], aux["dst_sorted"])
         w_bonds, b2dst = batch["w_bonds"], batch["b2dst"]
         for _ in range(cfg.depth - 1):
             if cfg.undirected:
@@ -260,7 +278,7 @@ class MPNEncoder(nn.Module):
             # layer-0 residual (mpn.py:123)
             message = drop(self.act(
                 inputs + linear(self.W_h, message, bf16)))
-        return atom_readout(message, w_bonds, b2dst, num_atoms)
+        return message, atom_readout(message, w_bonds, b2dst, num_atoms)
 
     def _atom_messages(self, batch, drop, bf16: bool) -> torch.Tensor:
         """The atom-message depth loop and readout (module docstring; JAX

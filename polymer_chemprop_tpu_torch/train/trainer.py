@@ -7,7 +7,10 @@ phase masks -> loaders -> per-ensemble-member init (or warm start, or
 resume) -> epoch loop (train epoch, eval val, per-epoch CSV logging,
 every-epoch resume checkpoint, best-model tracking) -> best-model test
 evaluation -> ensemble-averaged test predictions. The four scalers go into
-every checkpoint under the JAX package's keys.
+every checkpoint under the JAX package's keys. With ``tensorboard`` each
+member writes four scalars an epoch into its model directory; with
+``profile_dir`` the first epoch of member 0 runs under
+``torch.profiler`` and leaves a Chrome trace there.
 
 The model trains on ``cfg.device``: CUDA unless the caller asks for the
 CPU. Checkpoints are the JAX package's ``.ckpt`` (utils/checkpoint.py),
@@ -61,15 +64,37 @@ from .step import TrainStep, batch_tensors, make_loss_fn
 def check_training_args(cfg: TrainConfig) -> None:
     """Raise for what the port cannot train yet (see ROADMAP.md); the
     unported encoder options raise in EncoderConfig.check_supported."""
-    missing = []
     if cfg.data_parallel or cfg.graph_parallel:
-        missing.append("data_parallel / graph_parallel (one device only)")
-    if cfg.tensorboard:
-        missing.append("tensorboard")
-    if cfg.profile_dir:
-        missing.append("profile_dir")
-    if missing:
-        raise NotImplementedError("not on the port yet: " + "; ".join(missing))
+        raise NotImplementedError(
+            "not on the port yet: data_parallel / graph_parallel (one "
+            "device only)")
+
+
+def _start_profile(device: torch.device):
+    """A running ``torch.profiler``: host and CUDA activity on a
+    card, the host alone on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, device: torch.device, profile_dir: str,
+                  model_dir) -> str:
+    """Stop after the device has finished the epoch's work (JAX
+    trainer.py:714-718 blocks on the parameters) and write the Chrome
+    trace into ``profile_dir``; returns its path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    tag = os.path.basename(os.path.dirname(model_dir)) if model_dir else "run"
+    path = os.path.join(profile_dir, f"trace_{tag}.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def _trainable_mask(model: MoleculeModel, cfg: TrainConfig) -> Dict[str, bool]:
@@ -381,11 +406,25 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
                                                train_step.count)
                 if with_optimizer else None)
 
+        # TensorBoard scalars (reference run_training.py:233-236, 393-402),
+        # imported here: the package is optional, as in the JAX package
+        tb_writer = None
+        if cfg.tensorboard and model_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                tb_writer = SummaryWriter(log_dir=model_dir)
+            except Exception as exc:
+                info(f"TensorBoard unavailable ({exc}); skipping event logs")
+
         eval_args = (num_tasks, cfg.metrics, cfg.dataset_type, device, scaler)
         best_score = float("inf") if cfg.minimize_score else -float("inf")
         best_epoch = 0
         best_state = snapshot()
         for epoch in range(start_epoch, cfg.epochs):
+            # a trace of the first epoch (JAX trainer.py:589-593)
+            prof = None
+            if cfg.profile_dir and epoch == start_epoch and model_idx == 0:
+                prof = _start_profile(device)
             losses, gnorms = [], []
             t_epoch = time.perf_counter()
             for batch in train_loader:
@@ -399,6 +438,11 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
                 losses = fetched[:len(losses)].tolist()
                 gnorms = fetched[len(losses):].tolist()
             epoch_s = time.perf_counter() - t_epoch
+            if prof is not None:
+                trace = _stop_profile(prof, device, cfg.profile_dir,
+                                      model_dir)
+                debug(f"Wrote the profiler trace of epoch {epoch} to "
+                      f"{trace}")
             val_scores = evaluate(model, val_loader, *eval_args)
             train_scores = evaluate(model, train_eval_loader, *eval_args) \
                 if csv_path else None
@@ -419,6 +463,12 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
                 row += [pnorm, mean_gnorm]
                 with open(csv_path, "a", newline="") as f:
                     csv.writer(f).writerow(row)
+            if tb_writer is not None:
+                tb_writer.add_scalar("train_loss", mean_loss, epoch)
+                tb_writer.add_scalar(f"validation_{cfg.metric}", avg_val,
+                                     epoch)
+                tb_writer.add_scalar("param_norm", pnorm, epoch)
+                tb_writer.add_scalar("gradient_norm", mean_gnorm, epoch)
             # every-epoch resume checkpoint (reference run_training.py:404-409)
             if model_dir:
                 save("model.ckpt", epoch, with_optimizer=True)
@@ -430,6 +480,8 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
                 if model_dir:
                     save("best_model.ckpt", epoch, with_optimizer=False)
 
+        if tb_writer is not None:
+            tb_writer.close()
         info(f"Model {model_idx} best validation {cfg.metric} = "
              f"{best_score:.6f} on epoch {best_epoch}")
         best_states.append(best_state)

@@ -8,6 +8,11 @@ for a resume checkpoint, ``opt.npz``: the optimizer state as the list of
 leaves ``"0", "1", ...`` in the order the JAX package flattens its optax
 state. Parameters and moments stay in the JAX layout here (Linear ``w``
 is ``(in, out)``); models/convert.py maps both onto the torch side.
+
+Every file without ``meta.json`` (each shape of reference torch ``.pt``
+checkpoint) goes through utils/torch_import.py, so every consumer
+(serving, fingerprints, warm start, ``checkpoint_frzn``, resume) reads
+reference checkpoints as the JAX package does.
 """
 
 from __future__ import annotations
@@ -71,9 +76,12 @@ def _unflatten(flat: Dict[str, np.ndarray]):
 def save_checkpoint(path: str, params, config_dict: dict,
                     scalers: Optional[Dict[str, Optional[StandardScaler]]] = None,
                     epoch: Optional[int] = None,
-                    opt_leaves: Optional[List[np.ndarray]] = None) -> None:
+                    opt_leaves: Optional[List[np.ndarray]] = None,
+                    extra_meta: Optional[dict] = None) -> None:
     """Write a ``.ckpt`` (zip of params.npz + meta.json [+ opt.npz]) from
-    a pytree of numpy arrays in the JAX layout."""
+    a pytree of numpy arrays in the JAX layout. ``extra_meta`` adds keys
+    to ``meta.json`` (the SSL export's ``ssl`` and
+    ``transfer_strategy``)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     meta = {
         "config": config_dict,
@@ -81,6 +89,8 @@ def save_checkpoint(path: str, params, config_dict: dict,
         "scalers": {k: (v.to_dict() if v is not None else None)
                     for k, v in (scalers or {}).items()},
     }
+    if extra_meta:
+        meta.update(extra_meta)
     tmp = path + ".tmp"
     with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr("meta.json", json.dumps(meta))
@@ -98,17 +108,23 @@ def save_checkpoint(path: str, params, config_dict: dict,
 def load_checkpoint(path: str) -> Tuple[Any, Optional[dict],
                                         Dict[str, Optional[StandardScaler]],
                                         Optional[int]]:
-    """Read params (numpy pytree), config dict, scalers and epoch."""
+    """Read params (numpy pytree), config dict, scalers and epoch. A file
+    without ``meta.json`` is a reference ``.pt`` (config None for a
+    weights-only one); a corrupt native ``.ckpt`` raises."""
     try:
         zf = zipfile.ZipFile(path)
     except zipfile.BadZipFile:
-        zf = None
+        zf = None  # a legacy torch pickle (before torch 1.6)
     if zf is None or "meta.json" not in zf.namelist():
+        # torch >= 1.6 writes .pt files as zips too (data.pkl entries)
         if zf is not None:
             zf.close()
-        raise NotImplementedError(
-            f"{path} is not a native .ckpt; importing reference torch .pt "
-            "checkpoints is not on the port yet")
+        from .torch_import import import_reference_checkpoint
+        params, config, scaler_dicts, epoch = \
+            import_reference_checkpoint(path)
+        scalers = {k: StandardScaler.from_dict(v)
+                   for k, v in scaler_dicts.items()}
+        return params, config, scalers, epoch
     with zf:
         meta = json.loads(zf.read("meta.json"))
         npz = np.load(io.BytesIO(zf.read("params.npz")))
@@ -120,8 +136,13 @@ def load_checkpoint(path: str) -> Tuple[Any, Optional[dict],
 
 def load_opt_leaves(path: str) -> Optional[List[np.ndarray]]:
     """The optimizer-state leaves of a resume checkpoint, in file order;
-    None for a checkpoint without optimizer state."""
-    with zipfile.ZipFile(path) as zf:
+    None for a checkpoint without optimizer state, a reference ``.pt``
+    included (a resume from one starts a fresh optimizer)."""
+    try:
+        zf = zipfile.ZipFile(path)
+    except zipfile.BadZipFile:
+        return None  # a legacy torch pickle
+    with zf:
         if "opt.npz" not in zf.namelist():
             return None
         npz = np.load(io.BytesIO(zf.read("opt.npz")))

@@ -1082,3 +1082,48 @@ def test_model_with_features_and_descriptors_card_against_cpu(
     for name, g in want_grads.items():
         err = (grads[name] - g).abs().max().item()
         assert err <= 1e-4 * g.abs().max().item() + 1e-6, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_graph", [False, True])
+def test_ssl_step_card_against_cpu(cuda, with_graph):
+    """One masked SSL step (enhanced mode, gate open) on the card against
+    the CPU, on the same draws and weights: loss and gradient norm within
+    rtol 1e-4, each gradient within 1e-4 of its largest entry; rows 1-3
+    launched, the layer on its FP32 entry."""
+    from polymer_chemprop_tpu_torch import ssl
+    from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
+    fcfg = FeaturizationConfig(polymer=True)
+    gb = mol2graph(POLYMERS, fcfg)
+    arrays = gb.arrays(sorted_aux=True)
+    cfg = ssl.SSLConfig(hidden_size=300, depth=3, use_enhanced_ssl=True,
+                        augment_ratio=1.0)
+    enc_cfg = ssl.ssl_encoder_config(cfg, fcfg)
+    init = ssl.init_ssl_model(enc_cfg, 0)
+    draws = ssl.draw_masks(torch.Generator().manual_seed(1),
+                           gb.f_atoms.shape[0], gb.f_bonds.shape[0], True)
+    labels = torch.linspace(-1, 1, gb.degree_of_polym.shape[0])
+    outs = []
+    for dev in ("cpu", cuda):
+        model = ssl.SSLModel(enc_cfg).to(dev)
+        model.load_state_dict(init.state_dict())
+        step = ssl.make_ssl_step(cfg, model)
+        band_mpnn.reset_launch_counts()
+        loss, gnorm = step(batch_to_tensors(arrays, dev), labels.to(dev),
+                           {k: v.to(dev) for k, v in draws.items()},
+                           with_graph)
+        outs.append((float(loss), float(gnorm),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()},
+                     band_mpnn.launch_counts(),
+                     band_mpnn.tc_launch_counts()))
+    (want_loss, want_gnorm, want, cpu_counts, _), \
+        (loss, gnorm, got, counts, tc) = outs
+    assert not any(cpu_counts.values())
+    assert {k for k, v in counts.items() if v} == \
+        {"band_rev_layer", "band_rev_bwd", "atom_readout"}, counts
+    assert not any(tc.values()), tc
+    np.testing.assert_allclose([loss, gnorm], [want_loss, want_gnorm],
+                               rtol=1e-4)
+    for name, g in want.items():
+        err = (got[name] - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item() + 1e-6, (name, err)

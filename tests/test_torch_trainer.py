@@ -449,8 +449,12 @@ def test_unported_training_options_raise(tmp_path, kw, match):
     extra features (generators, feature files, atom descriptors) have been
     ported since: they train (parity with the JAX package:
     tests/test_torch_plain_band_train.py, tests/test_torch_atom_messages.py,
-    tests/test_torch_extra_features.py)."""
+    tests/test_torch_extra_features.py). So do ``tensorboard`` (an event
+    file in the model directory) and ``profile_dir`` (a Chrome trace
+    there); ``data_parallel`` still raises."""
     kw = dict(kw)
+    if match == "profile_dir":
+        kw["profile_dir"] = str(tmp_path / "profile")
     if match == "spectra training":
         kw.update(data_path=os.path.join(DATA, "spectra.csv"),
                   phase_features_path=os.path.join(DATA,
@@ -471,10 +475,17 @@ def test_unported_training_options_raise(tmp_path, kw, match):
                   atom_descriptors_path=str(tmp_path / "a.npz"))
     cfg = TrainConfig(**dict(dict(data_path=REGRESSION, device="cpu",
                                   save_dir=str(tmp_path)), **SMALL, **kw))
-    if match not in ("tensorboard", "profile_dir", "data_parallel"):
+    if match != "data_parallel":
         cfg.epochs = 1
         score, _ = cross_validate(cfg)
         assert np.isfinite(score)
+        if match == "tensorboard":
+            model_dir = tmp_path / "fold_0" / "model_0"
+            assert any(f.startswith("events.out.tfevents")
+                       for f in os.listdir(model_dir))
+        if match == "profile_dir":
+            traces = os.listdir(tmp_path / "profile")
+            assert traces and all(f.endswith(".json") for f in traces)
         return
     with pytest.raises(NotImplementedError, match=match):
         cross_validate(cfg)
