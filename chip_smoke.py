@@ -216,6 +216,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and predict 10 SMILES through HTTP (``/progress`` read, ``"error"``
    raises), equal to ``make_predictions`` bit for bit.
 
+10. parallel/ under ``torchrun --standalone`` (this script with
+   ``--parallel-rank``, one process a rank, all on the one card, so gloo
+   by the backend rule; counts from each rank, which runs the main path
+   only), at hidden 300, depth 3, FFN 2 x 300, relu, mean, the layer on
+   its FP32 entry. First rows 3, 3a and 3b (and the gather VJP: the gather
+   entry over bond rows with index srev) against their plain versions at
+   the shapes of an ep-2 shard of the bench batch. Two ranks: dp, 3 SGD
+   steps on regression.csv's first training batches (a micro-batch of 25
+   of each 50 a rank) against one rank on the batches of 50 (loss and
+   gradient norm 1e-4; parameters 1e-4 of each tensor's largest entry,
+   the JAX dry run's elementwise measure printed beside it; equal on both
+   ranks bit for bit); the four edge-parallel forwards at ep 2 on the
+   bench batch against the single-device encoder (rtol 1e-4, atol 1e-5;
+   overlapped against whole-window 1e-6); the halo exchange's ms a layer
+   at the bench window, the dp step's gradient all-reduce alone, and the
+   host partition of the bench batch (windows and CSRs); a cached dp
+   epoch's and a cached gp epoch's steps/s; a gp step under the
+   profiler, which must show no
+   ``index_add_``. Four ranks: the 2-D halo step (dp 2 x ep 2), bonds and
+   ``atom_messages``, 3 steps against one rank on the batches of 100
+   (1e-4 as above; equal on all ranks). Then ``cli train`` under 2-rank
+   torchrun, ``--data_parallel`` and ``--graph_parallel``, 3 epochs, on
+   regression.csv and the 200 copolymers, each test score within 1e-3 of
+   the same run on one rank in this call.
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -3108,6 +3133,538 @@ def entry_points_path(card):
     return launches, tc_launches
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+PAR_STEPS, PAR_LR = 3, 0.01      # SGD steps held against one rank
+PAR_EPOCHS = 3                   # cli train under torchrun
+PAR_TIMEOUT = 300                # seconds a launch may take
+PAR_CARD = "ranks sharing one card"
+PAR_DEVICE = "cuda"              # every rank's device (a rehearsal: "cpu")
+
+
+def par_model(dev, atom_messages=False):
+    """The full-width model of phase 10 (hidden 300, depth 3, FFN 2 x 300,
+    relu, mean, FP32 layer), weights from SEED: the same on every rank."""
+    from polymer_chemprop_tpu_torch.models.encoder import EncoderConfig
+    from polymer_chemprop_tpu_torch.models.init import init_model
+    from polymer_chemprop_tpu_torch.models.model import (ModelConfig,
+                                                        MoleculeModel)
+    enc = EncoderConfig(atom_fdim=133, bond_fdim=14 if atom_messages
+                        else 147, hidden_size=HIDDEN, depth=DEPTH,
+                        atom_messages=atom_messages,
+                        band_precision="highest")
+    cfg = ModelConfig(encoder=enc, dataset_type="regression", num_tasks=1,
+                      ffn_hidden_size=HIDDEN)
+    model = init_model(MoleculeModel(cfg),
+                       torch.Generator().manual_seed(SEED))
+    return model.to(dev)
+
+
+def par_loader(batch_size, sorted_aux=True):
+    """The shuffled training loader of regression.csv (split and target
+    scaling as the trainer's, seed SEED): one order whatever the batch
+    size, so ``k`` batches of 25 are the molecules of ``k / 2`` of 50."""
+    from polymer_chemprop_tpu_torch.data import (MoleculeDataLoader,
+                                                  get_data, split_data)
+    from polymer_chemprop_tpu_torch.features import FeaturizationConfig
+    data = get_data(os.path.join(ROOT, "tests", "data", "regression.csv"))
+    train, _, _ = split_data(data, "random", (0.8, 0.1, 0.1), SEED)
+    train.normalize_targets()
+    return MoleculeDataLoader(train, FeaturizationConfig(),
+                              batch_size=batch_size, shuffle=True, seed=SEED,
+                              num_workers=4, sorted_aux=sorted_aux)
+
+
+def par_first(batch_size, n, sorted_aux=True):
+    import itertools
+    loader = par_loader(batch_size, sorted_aux)
+    return list(itertools.islice(iter(loader), n)), loader
+
+
+def sgd(model):
+    """``(optimizer, schedule)``: SGD at PAR_LR."""
+    from polymer_chemprop_tpu_torch.train.scheduler import (
+        build_optimizer, constant_schedule)
+    return (build_optimizer("sgd", model.parameters()),
+            constant_schedule(PAR_LR))
+
+
+def param_rel_err(model, ref):
+    """``(of max, elementwise)``: max over parameters of max|a - b| /
+    max|b| (the error against each tensor's largest entry, the measure
+    the check holds), and max |a - b| / max(|b|, 1e-6) over every element
+    (the JAX dry run's, __graft_entry__.py:233-237, printed beside it; near
+    zero it divides rounding by the element itself)."""
+    pairs = [(a.detach(), b.detach()) for a, b in
+             zip(model.parameters(), ref.parameters())]
+    of_max = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+    elem = max(float(((a - b).abs() / b.abs().clamp(min=1e-6)).max())
+               for a, b in pairs)
+    return of_max, elem
+
+
+def param_sha(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def reference_steps(dev, batches, atom_messages=False):
+    """PAR_STEPS single-device SGD steps on ``batches``: the model, and each
+    step's loss and gradient norm."""
+    from polymer_chemprop_tpu_torch.train.step import (TrainStep,
+                                                       batch_tensors,
+                                                       make_loss_fn)
+    ref = par_model(dev, atom_messages)
+    step = TrainStep(ref, *sgd(ref), make_loss_fn(ref.cfg))
+    out = [step(batch_tensors(b, dev)) for b in batches[:PAR_STEPS]]
+    return ref, [(float(l), float(g)) for l, g in out]
+
+
+def synced_ms(fn, reps=20) -> float:
+    """Median host-clock ms of ``fn()`` ended by a device sync."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def rank_dp(dev, rank, out):
+    """dp at 2 ranks: PAR_STEPS steps on the first training batches, each
+    rank one micro-batch of 25 of each batch of 50, against one rank on
+    the batches of 50; then a cached dp epoch's steps/s."""
+    from polymer_chemprop_tpu_torch.parallel import (make_dp_train_step,
+                                                     make_mesh)
+    from polymer_chemprop_tpu_torch.train.step import batch_tensors
+    mesh = make_mesh(2, ("dp",))
+    micro, loader = par_first(25, 2 * PAR_STEPS)
+    model = par_model(dev)
+    step = make_dp_train_step(model, *sgd(model), mesh)
+    out["dp_steps"] = [
+        [float(x) for x in step([batch_tensors(micro[2 * k + rank], dev)])]
+        for k in range(PAR_STEPS)]
+    out["dp_sha"] = param_sha(model)
+    if rank == 0:
+        ref, out["dp_ref_steps"] = reference_steps(dev, par_first(
+            50, PAR_STEPS)[0])
+        out["dp_rel_err"] = param_rel_err(model, ref)
+    # a cached epoch: the first featurizes and warms up
+    for epoch in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for b in loader.iter_rank(rank, 2):
+            step([batch_tensors(b, dev)])
+            n += 1
+        torch.cuda.synchronize()
+        out["dp_epoch"] = (n, time.perf_counter() - t0)
+    # the step's gradient all-reduce alone: every parameter and the loss
+    from polymer_chemprop_tpu_torch.parallel.mesh import all_reduce_sum
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()]
+                     + [torch.zeros(1, device=dev)])
+    out["allreduce"] = (flat.numel(), synced_ms(
+        lambda: all_reduce_sum(flat, mesh.group("dp"))))
+
+
+def rank_gp_epoch(dev, rank, out):
+    """A cached gp epoch (ep 2, the strip exchange) on regression.csv's
+    batches of 50, host partitioning included."""
+    from polymer_chemprop_tpu_torch.parallel import (
+        build_edge_shards_halo_dp, make_halo_dp_train_step, make_mesh)
+    from polymer_chemprop_tpu_torch.train.step import batch_pytree
+    mesh = make_mesh(2, ("dp", "ep"), shape=(1, 2))
+    loader = par_loader(50, sorted_aux=False)
+    model = par_model(dev)
+    step = make_halo_dp_train_step(model, *sgd(model), mesh,
+                                   overlap=True)
+    aw = (loader.estimated_pad_atoms() + 7) // 8 * 8
+    def run(b):
+        t = batch_pytree(b)
+        sh, rep = build_edge_shards_halo_dp([t["graphs"]], 2, aw)
+        step(sh, rep, t["targets"][None], t["mask"][None],
+             t["weights"][None])
+
+    for epoch in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for b in loader:
+            run(b)
+            n += 1
+        torch.cuda.synchronize()
+        out["gp_epoch"] = (n, time.perf_counter() - t0)
+    # one more step under the profiler: the operators it ran
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(b)
+    out["gp_index_add"] = sum(e.count for e in prof.key_averages()
+                              if "index_add" in e.key)
+
+
+def rank_forwards(dev, rank, out, arrays):
+    """The four edge-parallel forwards at ep 2 on the bench batch against
+    the single-device encoder; the halo exchange's ms per layer."""
+    from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
+    from polymer_chemprop_tpu_torch import parallel as tpar
+    from polymer_chemprop_tpu_torch.parallel import partition, mesh as pm
+    from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
+    enc = par_model(dev).encoders[0]
+    cfg = enc.cfg
+    aux = build_sorted_aux(arrays["b2dst"], arrays["b2revb"],
+                           arrays["w_bonds"],
+                           num_atoms=arrays["f_atoms"].shape[0])
+    single = dict(arrays, sorted_aux=aux._asdict(),
+                  f_bonds=arrays["f_bonds"][aux.perm])
+    mesh = tpar.make_mesh(2, ("ep",))
+    with torch.no_grad():
+        want = enc(batch_to_tensors(single, dev))
+        got = {}
+        sh, rep = tpar.build_edge_shards(arrays, 2)
+        got["psum"] = tpar.make_edge_parallel_forward(cfg, mesh)(enc, sh,
+                                                                 rep)
+        sh, rep = tpar.build_edge_shards_halo(arrays, 2)
+        got["halo"] = tpar.make_edge_parallel_forward_halo(cfg, mesh)(
+            enc, sh, rep)
+        shb, repb = tpar.build_edge_shards_halo_band(arrays, 2)
+        got["band"] = tpar.make_edge_parallel_forward_halo_band(cfg, mesh)(
+            enc, shb, repb)
+        sw = tpar.halo_strip_width(sh)
+        got["overlap"] = tpar.make_edge_parallel_forward_halo_overlap(
+            cfg, mesh, sw)(enc, sh, rep)
+    out["forwards"] = {
+        k: [float((v - want).abs().max()),
+            bool(((v - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())]
+        for k, v in got.items()}
+    out["overlap_vs_halo"] = float((got["overlap"] - got["halo"]).abs()
+                                   .max())
+    # the exchange alone at the bench window: a layer's whole-window
+    # combine, and its strip form (post, then wait)
+    t = partition._prepare_halo(partition._take(sh, rank), rep, dev)
+    Aw = t["f_atoms_win"].shape[0]
+    partial = torch.randn((Aw, HIDDEN), device=dev)
+    out["halo_ms"] = synced_ms(lambda: partition._HaloCombineFn.apply(
+        partial, mesh, "ep", t["off_prev"], t["off_next"]))
+    out["strip_ms"] = synced_ms(lambda: pm.exchange(
+        mesh, "ep", partial[:sw], partial[:sw]).wait())
+    out["window"] = (Aw, sw, int(sh["f_bonds"].shape[1]))
+
+
+def rank_2d(dev, rank, out):
+    """The 2-D halo step (dp 2 x ep 2) with bond and atom messages:
+    PAR_STEPS steps, each on two batches of 50 (one a dp row), against one
+    rank on the batches of 100."""
+    from polymer_chemprop_tpu_torch.parallel import (
+        build_edge_shards_halo_dp, make_halo_dp_train_step, make_mesh)
+    from polymer_chemprop_tpu_torch.train.step import batch_pytree
+    mesh = make_mesh(4, ("dp", "ep"), shape=(2, 2))
+    batches, loader = par_first(50, 2 * PAR_STEPS, sorted_aux=False)
+    aw = (loader.estimated_pad_atoms() + 7) // 8 * 8
+    refs = par_first(100, PAR_STEPS)[0] if rank == 0 else None
+    for am in (False, True):
+        key = "atom_messages" if am else "bonds"
+        model = par_model(dev, am)
+        step = make_halo_dp_train_step(model, *sgd(model), mesh)
+        steps = []
+        for k in range(PAR_STEPS):
+            trees = [batch_pytree(b) for b in batches[2 * k:2 * k + 2]]
+            sh, rep = build_edge_shards_halo_dp([t["graphs"] for t in trees],
+                                                2, aw)
+            stack = lambda f: np.stack([t[f] for t in trees])
+            steps.append([float(x) for x in step(
+                sh, rep, stack("targets"), stack("mask"), stack("weights"))])
+        out[f"{key}_steps"] = steps
+        out[f"{key}_sha"] = param_sha(model)
+        if rank == 0:
+            ref, out[f"{key}_ref_steps"] = reference_steps(dev, refs, am)
+            out[f"{key}_rel_err"] = param_rel_err(model, ref)
+
+
+def rank_main(argv) -> int:
+    """One rank of a phase-10 launch: ``chip_smoke.py --parallel-rank TASK
+    OUT_DIR [cli arguments]`` under torchrun. Writes its results and its
+    kernel launch counts (all of them: this process runs the main path
+    only) to ``OUT_DIR/rank<r>.json``."""
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.parallel import initialize_multihost
+    from polymer_chemprop_tpu_torch.parallel.mesh import world
+    from polymer_chemprop_tpu_torch.parallel.multihost import rank_device
+    warnings.filterwarnings("ignore", message="sum of weights of incoming")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    task, out_dir = argv[0], argv[1]
+    out = {"task": task}
+    if task == "cli":
+        from polymer_chemprop_tpu_torch import cli
+        bm.reset_launch_counts()
+        cli.main(["train", *argv[2:]])
+        rank = int(os.environ["RANK"])
+    else:
+        out["backend"] = initialize_multihost(device=PAR_DEVICE)
+        rank, _ = world()
+        dev = rank_device(PAR_DEVICE)
+        bm.reset_launch_counts()
+        if task == "ranks2":
+            arrays = dict(np.load(os.path.join(OUT_DIR, "bench_arrays.npz")))
+            rank_dp(dev, rank, out)
+            rank_forwards(dev, rank, out, arrays)
+            rank_gp_epoch(dev, rank, out)
+        else:
+            rank_2d(dev, rank, out)
+        torch.distributed.destroy_process_group()
+    out["launches"] = bm.launch_counts()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def torchrun(n, task, out_dir, *args):
+    """Start ``n`` ranks of ``task`` with ``torchrun --standalone``."""
+    os.makedirs(out_dir, exist_ok=True)
+    log_file = open(os.path.join(out_dir, "log.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(n), os.path.join(ROOT, "chip_smoke.py"),
+         "--parallel-rank", task, out_dir, *args],
+        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=ROOT),
+        stdout=log_file, stderr=subprocess.STDOUT)
+    proc.log_file = log_file
+    proc.out_dir, proc.n = out_dir, n
+    return proc
+
+
+def rank_results(proc):
+    """Wait for a launch; its ranks' results, rank order. A failed launch
+    prints its log's tail and raises."""
+    try:
+        rc = proc.wait(timeout=PAR_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    proc.log_file.close()
+    if rc != 0:
+        with open(os.path.join(proc.out_dir, "log.txt")) as f:
+            log(f.read()[-6000:])
+        raise RuntimeError(f"chip_smoke: the launch in {proc.out_dir} "
+                           f"failed ({rc})")
+    results = []
+    for r in range(proc.n):
+        with open(os.path.join(proc.out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def host_partition_ms(gb, reps=5) -> float:
+    """Median host ms of the ep-2 partition of the bench batch: the
+    windows (``build_edge_shards_halo``), then each shard's dst-sorted CSR
+    and molecule CSR, as a gp step builds them (numpy, one thread)."""
+    from polymer_chemprop_tpu_torch.parallel import partition
+    arrays = gb.arrays()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sh, rep = partition.build_edge_shards_halo(arrays, 2)
+        for s in range(2):
+            one = partition.shard_csr(partition._take(sh, s))
+            partition._mol_csr(one["a2mol_win"],
+                               one["w_atoms_win"] * one["own_mask"],
+                               rep["degree_of_polym"].shape[0])
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def shard_kernel_checks(bm, results, dev, gb):
+    """Rows 3, 3a and 3b at the shapes a shard of the bench batch gives
+    them (ep 2, shard 0's window CSR) against their plain versions: the
+    aggregation, the atom_messages neighbour sum and readout over the
+    window table, and the gather's VJP (the gather entry over bond rows
+    with index srev). Not counted: the counts are reset after."""
+    from polymer_chemprop_tpu_torch.parallel import partition
+    sh, rep = partition.build_edge_shards_halo(gb.arrays(), 2)
+    t = partition._prepare_halo(partition._take(sh, 0), rep, dev)
+    rp, w, src, srev = t["rowptr"], t["w_sorted"], t["src_sorted"], t["srev"]
+    gen = torch.Generator(dev).manual_seed(SEED)
+    B, A1 = src.shape[0], rp.shape[0] - 1
+    m = torch.randn((B, HIDDEN), device=dev, generator=gen)
+    h = torch.randn((A1, HIDDEN), device=dev, generator=gen)
+    aux = {"src_sorted": src, "srev": srev, "rowptr": rp, "w_sorted": w}
+    cases = [("atom_readout", "aggregation", bm.atom_readout(m, w, rp),
+              bm.atom_readout_plain(m, w, rp)),
+             ("atom_neighbor_sum", "neighbour sum",
+              bm.atom_neighbor_sum_sorted(h, aux),
+              bm.atom_neighbor_sum_plain(h, src, rp)),
+             ("src_readout", "readout", bm.src_readout_sorted(h, aux),
+              bm.src_readout_plain(h, w, src, rp)),
+             ("atom_neighbor_sum", "gather VJP (srev)",
+              bm.csr_gather_sum(m, srev, None, rp),
+              bm.atom_neighbor_sum_plain(m, srev, rp))]
+    torch.cuda.synchronize()
+    for name, what, got, plain in cases:
+        err, tol = (got - plain).abs().max().item(), kernel_tolerance(plain)
+        log(f"[parallel] {name} {what} at the shard shape B={B} "
+            f"A={A1} H={HIDDEN}: max_abs_err {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, f"{name} {what} disagrees with its plain version "
+                          "at the shard shape")
+        note_error(results, name, err)
+    bm.reset_launch_counts()
+
+
+def parallel_path(card, dev, gb, results):
+    """Phase 10: parallel/ under torchrun on the card (module docstring).
+    Returns the ranks' kernel launches."""
+    import csv
+
+    from polymer_chemprop_tpu_torch.config import parse_train_args
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    t0 = time.perf_counter()
+    shard_kernel_checks(bm, results, dev, gb)
+    log(f"[parallel] host partition of the bench batch for ep 2 (windows, "
+        f"2 shard CSRs, 2 molecule CSRs): {host_partition_ms(gb):.2f} ms "
+        f"(median of 5, one thread) on the host of {card}")
+    out_dir = os.path.join(OUT_DIR, "parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(OUT_DIR, "bench_arrays.npz"), **gb.arrays())
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+    procs = []
+
+    def tally(res):
+        for r in res:
+            for k, v in r["launches"].items():
+                launches[k] += v
+
+    try:
+        # 1-2: dp, the forwards and the timings, two ranks alone on the card
+        procs.append(torchrun(2, "ranks2", os.path.join(out_dir, "ranks2")))
+        r2 = rank_results(procs[-1])
+        tally(r2)
+        # then, together (no timings among them): the 2-D step on four
+        # ranks, and cli train under torchrun against one rank here
+        procs.append(torchrun(4, "ranks4", os.path.join(out_dir, "ranks4")))
+        ranks4 = procs[-1]
+        poly_csv = os.path.join(OUT_DIR, "polymers_train.csv")
+        polymer_csv(poly_csv, with_target=True)
+        data = {"regression": os.path.join(ROOT, "tests", "data",
+                                           "regression.csv"),
+                "polymer": poly_csv}
+
+        def argv(kind, save_dir):
+            return ["--data_path", data[kind], "--dataset_type",
+                    "regression", "--save_dir", save_dir, "--epochs",
+                    str(PAR_EPOCHS), "--hidden_size", str(HIDDEN),
+                    "--band_precision", "highest", "--seed", str(SEED),
+                    "--device", PAR_DEVICE, "--quiet"] + (
+                        ["--polymer"] if kind == "polymer" else [])
+
+        runs = {}
+        for kind in data:
+            for flag in ("--data_parallel", "--graph_parallel"):
+                d = os.path.join(out_dir, f"cli_{kind}_{flag[2:]}")
+                procs.append(torchrun(2, "cli", d, *argv(kind, d), flag))
+                runs[(kind, flag)] = procs[-1]
+        single = {}
+        for kind in data:
+            d = os.path.join(out_dir, f"cli_{kind}_single")
+            single[kind] = cross_validate(parse_train_args(argv(kind, d)))[0]
+        r4 = rank_results(ranks4)
+        tally(r4)
+        check(all(r["backend"] == "gloo" for r in r2 + r4),
+              "ranks sharing one card must take gloo")
+        for k in range(PAR_STEPS):
+            (l, g), (rl, rg) = r2[0]["dp_steps"][k], r2[0]["dp_ref_steps"][k]
+            log(f"[parallel] dp 2 ranks step {k}: loss {l:.7f} gnorm "
+                f"{g:.6f}; one rank {rl:.7f} / {rg:.6f}")
+            check(abs(l - rl) <= 1e-4 * abs(rl) and abs(g - rg)
+                  <= 1e-4 * abs(rg), "dp loss or gradient norm")
+        check(r2[0]["dp_sha"] == r2[1]["dp_sha"],
+              "dp parameters differ between the ranks")
+        of_max, elem = r2[0]["dp_rel_err"]
+        log(f"[parallel] dp parameters after {PAR_STEPS} steps against one "
+            f"rank: max rel err {of_max:.3e} of each tensor's max "
+            f"(elementwise {elem:.3e}); equal on both ranks bit for bit")
+        check(of_max <= 1e-4, "dp parameters")
+        for name, (err, ok) in r2[0]["forwards"].items():
+            log(f"[parallel] forward {name} ep 2 on the bench batch: max "
+                f"abs err {err:.3e} against one device")
+            check(ok and all(r["forwards"][name][1] for r in r2),
+                  f"forward {name} outside rtol 1e-4 atol 1e-5")
+        log(f"[parallel] overlapped against whole-window exchange: "
+            f"{r2[0]['overlap_vs_halo']:.3e}")
+        check(r2[0]["overlap_vs_halo"] <= 1e-6, "overlap is not row-exact")
+        for key in ("bonds", "atom_messages"):
+            for k in range(PAR_STEPS):
+                (l, _), (rl, _) = (r4[0][f"{key}_steps"][k],
+                                   r4[0][f"{key}_ref_steps"][k])
+                check(abs(l - rl) <= 1e-4 * abs(rl), f"2-D {key} loss")
+            check(len({r[f"{key}_sha"] for r in r4}) == 1,
+                  f"2-D {key} parameters differ between the ranks")
+            of_max, elem = r4[0][key + "_rel_err"]
+            log(f"[parallel] 2-D halo step (dp 2 x ep 2) {key}, "
+                f"{PAR_STEPS} steps against one rank: max param rel err "
+                f"{of_max:.3e} of each tensor's max (elementwise "
+                f"{elem:.3e}); losses "
+                f"{[round(s[0], 6) for s in r4[0][key + '_steps']]}")
+            check(of_max <= 1e-4, f"2-D {key} parameters")
+        n, s = r2[0]["dp_epoch"]
+        log(f"[parallel] cached dp epoch, 2 {PAR_CARD}: {n} steps in "
+            f"{1e3 * s:.1f} ms ({n / s:.1f} steps/s) on {card}")
+        check(all(r["gp_index_add"] == 0 for r in r2),
+              "the gp step ran index_add_ on the card")
+        log("[parallel] a gp step under the profiler: no index_add_ on "
+            "either rank (aggregation, its gather VJP and the molecule "
+            "readout on rows 3, 3a, 3b)")
+        n, s = r2[0]["gp_epoch"]
+        log(f"[parallel] cached gp epoch (ep 2, strip exchange), 2 "
+            f"{PAR_CARD}: {n} steps in {1e3 * s:.1f} ms ({n / s:.1f} "
+            f"steps/s) on {card}")
+        n, ms = r2[0]["allreduce"]
+        log(f"[parallel] gradient all-reduce of a dp step ({n} floats: "
+            f"every parameter and the loss), 2 {PAR_CARD} (gloo through "
+            f"host memory): {ms:.3f} ms (rank 1 {r2[1]['allreduce'][1]:.3f}) "
+            f"on {card}")
+        Aw, sw, Bs = r2[0]["window"]
+        log(f"[parallel] halo exchange per layer at the bench window "
+            f"(Aw={Aw}, H={HIDDEN}, {Bs} bonds a shard), 2 {PAR_CARD} "
+            f"(gloo through host memory): whole window "
+            f"{r2[0]['halo_ms']:.3f} ms, strips of {sw} rows "
+            f"{r2[0]['strip_ms']:.3f} ms (rank 0; rank 1 "
+            f"{r2[1]['halo_ms']:.3f} / {r2[1]['strip_ms']:.3f}) on {card}")
+
+        for (kind, flag), proc in runs.items():
+            res = rank_results(proc)
+            tally(res)
+            with open(os.path.join(proc.out_dir, "test_scores.csv")) as f:
+                score = float(next(csv.DictReader(f))["Mean rmse"])
+            with open(os.path.join(proc.out_dir, "verbose.log")) as f:
+                verbose = f.read()
+            mode = "Data" if flag == "--data_parallel" else "Graph"
+            check(f"{mode}-parallel training" in verbose
+                  and "over 2 devices" in verbose
+                  and "fallback" not in verbose,
+                  f"cli {kind} {flag} did not train in parallel")
+            rel = abs(score - single[kind]) / abs(single[kind])
+            log(f"[parallel] cli train {kind} {flag} under torchrun (2 "
+                f"{PAR_CARD}, {PAR_EPOCHS} epochs): test rmse {score:.6f}, "
+                f"one rank {single[kind]:.6f}, rel {rel:.2e}")
+            check(rel <= 1e-3, f"cli {kind} {flag} score")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"[parallel] phase 10 launches {launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
@@ -3130,8 +3687,10 @@ def main() -> int:
     atom_messages = atom_messages_path(card)
     features, features_tc = extra_features_path(card)
     entry, entry_tc = entry_points_path(card)
+    parallel = parallel_path(card, dev, gb, results)
     for counts in (fingerprint, training, plain_band, atom_messages,
-                   features, entry, probe_path(card, dev, gb, results)):
+                   features, entry, parallel,
+                   probe_path(card, dev, gb, results)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     for counts in (fingerprint_tc, training_tc, plain_band_tc, features_tc,
@@ -3207,4 +3766,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -165,6 +165,10 @@ class TrainConfig:
     use_native_featurizer: Optional[bool] = None
     profile_dir: Optional[str] = None
     tensorboard: bool = False
+    # the torch.distributed backend of a torchrun launch: None picks
+    # "nccl" when every rank has a card of its own, else "gloo"
+    # (parallel/multihost.py pick_backend)
+    dist_backend: Optional[str] = None
 
     def __post_init__(self):
         if self.metric is None:

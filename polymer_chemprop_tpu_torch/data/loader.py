@@ -12,7 +12,8 @@ take the Python path, as in the JAX package. Molecule-level features ride
 along as ``(M, F)`` and atom descriptors as ``(pad_atoms, D)`` (row 0 is
 padding), both float32. Batches are made on a thread pool when
 there is more than one (a ctypes call releases the GIL), and every batch
-carries the dst-sorted bond layout of ops/sorted_aux.py. Every emitted
+carries the dst-sorted bond layout of ops/sorted_aux.py (``sorted_aux=False``
+keeps the natural bond pair order, for the edge partitioner). Every emitted
 batch shares one padding envelope, sticky under reshuffling, so the
 kernels see one shape per run.
 
@@ -51,6 +52,14 @@ class DeviceBatch:
         # (pad_atoms, D) float32 or None, aligned with the atom axis
         self.atom_descriptors = atom_descriptors
 
+    def masked_out(self) -> "DeviceBatch":
+        """This batch with mask and loss weights zero: it pads a
+        data-parallel group and contributes nothing to the loss."""
+        return DeviceBatch(self.graph_arrays, self.targets,
+                           np.zeros_like(self.mask),
+                           np.zeros_like(self.data_weights), self.size,
+                           self.features, self.atom_descriptors)
+
 
 class MoleculeDataLoader:
     """Iterable over DeviceBatches with a stable padding envelope."""
@@ -58,8 +67,12 @@ class MoleculeDataLoader:
     def __init__(self, dataset: MoleculeDataset, config: FeaturizationConfig,
                  batch_size: int = 50, shuffle: bool = False, seed: int = 0,
                  class_balance: bool = False, num_workers: int = 8,
-                 align: int = 256, use_native: Optional[bool] = None):
+                 align: int = 256, use_native: Optional[bool] = None,
+                 sorted_aux: bool = True):
         self.dataset = dataset
+        # False: the natural (fwd, rev) bond pair order and no dst-sorted
+        # layout, which the edge partitioner needs (JAX trainer.py:353-357)
+        self.sorted_aux = sorted_aux
         self.config = config
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -117,6 +130,20 @@ class MoleculeDataLoader:
         return [d.targets for d in self.dataset]
 
     # -- envelope -----------------------------------------------------------
+    def estimated_pad_bonds(self) -> int:
+        """Bond envelope under the identity order (the sticky envelope only
+        grows from here): the trainer's graph-parallel auto rule (JAX
+        loader.py:196-202)."""
+        self._compute_envelope(list(range(len(self.dataset))))
+        return int(self._pad_bonds)
+
+    def estimated_pad_atoms(self) -> int:
+        """The current atom envelope (computed first if needed): the
+        trainer's fixed halo atom window (JAX loader.py:204-210)."""
+        if self._pad_atoms is None:
+            self._compute_envelope(list(range(len(self.dataset))))
+        return int(self._pad_atoms)
+
     def _compute_envelope(self, order: List[int]) -> None:
         """Pad sizes covering every batch under the current order. Sticky
         (monotone non-decreasing) and aligned, so a reshuffle almost always
@@ -226,7 +253,7 @@ class MoleculeDataLoader:
                 gb = batch_graphs(graphs, pad_atoms=self._pad_atoms,
                                   pad_bonds=self._pad_bonds,
                                   pad_mols=self.batch_size)
-            graph_arrays.append(gb.arrays(sorted_aux=True))
+            graph_arrays.append(gb.arrays(sorted_aux=self.sorted_aux))
         M = self.batch_size
         num_tasks = len(points[0].targets) \
             if points[0].targets is not None else 0
@@ -262,11 +289,32 @@ class MoleculeDataLoader:
                            atom_descriptors=atom_desc)
 
     def __iter__(self) -> Iterator[DeviceBatch]:
+        # a generator: the order is drawn at the first batch, as before
+        yield from self._batches(self._chunks())
+
+    def iter_rank(self, rank: int, n_ranks: int) -> Iterator[DeviceBatch]:
+        """Rank ``rank``'s batch of every group of ``n_ranks`` consecutive
+        batches (data-parallel training; every rank draws the same order).
+        In a last group shorter than ``n_ranks`` a rank past its end gets a
+        masked-out copy of the group's last batch, which adds nothing to
+        the loss or its gradient (JAX trainer.py:600-607, 823-832)."""
+        chunks = self._chunks()
+        mine, pad = [], []
+        for g in range(0, len(chunks), n_ranks):
+            group = chunks[g:g + n_ranks]
+            pad.append(rank >= len(group))
+            mine.append(group[min(rank, len(group) - 1)])
+        for batch, masked in zip(self._batches(mine), pad):
+            yield batch.masked_out() if masked else batch
+
+    def _chunks(self) -> List[List[int]]:
         order = self._indices()
         if self._pad_atoms is None or self.shuffle:
             self._compute_envelope(order)
-        chunks = [order[i:i + self.batch_size]
-                  for i in range(0, len(order), self.batch_size)]
+        return [order[i:i + self.batch_size]
+                for i in range(0, len(order), self.batch_size)]
+
+    def _batches(self, chunks) -> Iterator[DeviceBatch]:
         if self.num_workers > 1 and len(chunks) > 1:
             with ThreadPoolExecutor(max_workers=min(self.num_workers, 8)) as ex:
                 futures = [ex.submit(self._make_batch, c) for c in chunks]

@@ -32,7 +32,9 @@
   (``atom_gather_readout_f32``; the JAX package composes the gather
   ``h[src_sorted]`` with ``_atom_band_kernel``), which never writes the
   gathered (B, H) rows. Differentiable in ``h``, each VJP on the same
-  kernel.
+  kernel. :func:`csr_gather_sum` is that entry over any row table, forward
+  only: the edge-partitioned encoder's gather VJP (bond rows by ``srev``)
+  and molecule readout (parallel/partition.py).
 
 * :func:`band_message_step_sorted`, :func:`band_matmul_step_sorted` and
   :func:`band_matmul_act_step_sorted`: the JAX package's public ops of the
@@ -452,18 +454,19 @@ def _atom_readout_forward(m: torch.Tensor, w_sorted: torch.Tensor,
 
 
 def _atom_gather_launch(kernel: str, h: torch.Tensor, idx: torch.Tensor,
-                        w: Optional[torch.Tensor], rowptr: torch.Tensor
-                        ) -> torch.Tensor:
+                        w: Optional[torch.Tensor], rowptr: torch.Tensor,
+                        rows: Optional[int] = None) -> torch.Tensor:
     """Checks, allocation and launch of csrc/atom_readout.cu's gather entry
     ``atom_gather_readout_f32``: ``out[v] = sum_{c in run(v)} w[c]
-    h[idx[c]]`` for an (A, H) table ``h``; ``w`` None means unit weights
-    (never read)."""
+    h[idx[c]]`` for a table ``h`` of ``rows`` rows (the A atoms unless
+    given: :func:`csr_gather_sum` reads bond rows); ``w`` None means unit
+    weights (never read)."""
     if h.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {h.device}")
     A = rowptr.shape[0] - 1
     B, H = idx.shape[0], h.shape[1]
     dev = h.device
-    _check("h", h, (A, H), torch.float32, dev)
+    _check("h", h, (A if rows is None else rows, H), torch.float32, dev)
     _check("src_sorted", idx, (B,), torch.int32, dev)
     if w is not None:
         _check("w", w, (B,), torch.float32, dev)
@@ -482,7 +485,8 @@ def _atom_gather_launch(kernel: str, h: torch.Tensor, idx: torch.Tensor,
 
 def _atom_gather_forward(wrapper, h: torch.Tensor,
                          w: Optional[torch.Tensor], src_sorted: torch.Tensor,
-                         rowptr: torch.Tensor) -> torch.Tensor:
+                         rowptr: torch.Tensor,
+                         rows: Optional[int] = None) -> torch.Tensor:
     """The sum of ``wrapper`` (:func:`atom_neighbor_sum_sorted` with ``w``
     None, :func:`src_readout_sorted`): its plain version on CPU tensors,
     else one launch counted in ``wrapper.launches``."""
@@ -490,7 +494,8 @@ def _atom_gather_forward(wrapper, h: torch.Tensor,
         if w is None:
             return atom_neighbor_sum_plain(h, src_sorted, rowptr)
         return src_readout_plain(h, w, src_sorted, rowptr)
-    out = _atom_gather_launch(wrapper.__name__, h, src_sorted, w, rowptr)
+    out = _atom_gather_launch(wrapper.__name__, h, src_sorted, w, rowptr,
+                              rows)
     wrapper.launches += 1
     return out
 
@@ -952,6 +957,22 @@ def src_readout_sorted(h: torch.Tensor,
     ``srev`` (read by the gradient) and ``rowptr``."""
     return _SrcReadoutFn.apply(h, aux["w_sorted"], aux["src_sorted"],
                                aux["srev"], aux["rowptr"])
+
+
+def csr_gather_sum(h: torch.Tensor, idx: torch.Tensor,
+                   w: Optional[torch.Tensor],
+                   rowptr: torch.Tensor) -> torch.Tensor:
+    """``out[v] = sum_{c in run(v)} w[c] h[idx[c]]`` over any row table
+    ``h`` (``w`` None: unit weights), forward only: the gather entry of
+    csrc/atom_readout.cu, counted with sub-row 3a
+    (``atom_neighbor_sum_sorted.launches``) at unit weights and 3b
+    (``src_readout_sorted.launches``) otherwise. The edge-partitioned
+    encoder (parallel/partition.py) builds its gather VJP and its molecule
+    readout on it. idx: (B,) int32 rows of ``h``; w: (B,) f32 or None;
+    rowptr: (A + 1,) int32."""
+    wrapper = atom_neighbor_sum_sorted if w is None else src_readout_sorted
+    return _atom_gather_forward(wrapper, h.contiguous(), w, idx, rowptr,
+                                rows=h.shape[0])
 
 
 WRAPPERS = (band_rev_layer, band_rev_bwd, atom_readout, band_agg, band_bwd,

@@ -14,7 +14,7 @@ import numpy as np
 from ..config import TrainConfig
 from ..data import get_data, get_task_names
 from ..utils.logging import get_logger, timeit
-from .trainer import check_training_args, run_training
+from .trainer import run_training
 
 TEST_SCORES_FILE_NAME = "test_scores.csv"
 
@@ -24,8 +24,11 @@ def cross_validate(cfg: TrainConfig,
                    ) -> Tuple[float, float]:
     """k-fold cross-validation; returns (mean, std) of the main metric
     (reference cross_validate.py:22-184)."""
-    check_training_args(cfg)
-    logger = get_logger("train", cfg.save_dir, cfg.quiet)
+    from ..parallel.mesh import world
+    # several ranks (torchrun): rank 0 keeps the logs and writes the files
+    main = world()[0] == 0
+    logger = get_logger("train", cfg.save_dir if main else None,
+                        cfg.quiet or not main)
     info = logger.info
     init_seed = cfg.seed
     save_dir = cfg.save_dir
@@ -34,7 +37,7 @@ def cross_validate(cfg: TrainConfig,
     task_names = get_task_names(cfg.data_path, cfg.smiles_columns,
                                 cfg.target_columns, cfg.ignore_columns,
                                 cfg.number_of_molecules)
-    if save_dir:
+    if save_dir and main:
         os.makedirs(save_dir, exist_ok=True)
         cfg.save(os.path.join(save_dir, "args.json"))
 
@@ -64,7 +67,7 @@ def cross_validate(cfg: TrainConfig,
         fold_cfg.seed = init_seed + fold_num
         fold_cfg.save_dir = os.path.join(save_dir, f"fold_{fold_num}") \
             if save_dir else None
-        if fold_cfg.save_dir:
+        if fold_cfg.save_dir and main:
             os.makedirs(fold_cfg.save_dir, exist_ok=True)
 
         # fold-resume (fork addition, reference cross_validate.py:108-115)
@@ -104,7 +107,7 @@ def cross_validate(cfg: TrainConfig,
         if metric == cfg.metric:
             mean_score, std_score = mean, std
 
-    if save_dir:
+    if save_dir and main:
         # spectra evaluates one score across the whole spectrum, not per task
         n_scored = len(all_scores[cfg.metric][0])
         if n_scored != len(task_names):
@@ -131,7 +134,17 @@ def cross_validate(cfg: TrainConfig,
 
 @timeit()
 def chemprop_train(argv: Optional[List[str]] = None) -> Tuple[float, float]:
-    """CLI entry (reference cross_validate.py:187-193)."""
+    """CLI entry (reference cross_validate.py:187-193); under ``torchrun``
+    each rank runs it (parallel/multihost.py ``initialize_multihost``)."""
     from ..config import parse_train_args
+    from ..parallel.multihost import initialize_multihost
     cfg = parse_train_args(argv)
-    return cross_validate(cfg)
+    # under torchrun (WORLD_SIZE > 1) every rank starts the process group
+    started = initialize_multihost(backend=cfg.dist_backend,
+                                   device=cfg.device)
+    try:
+        return cross_validate(cfg)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()

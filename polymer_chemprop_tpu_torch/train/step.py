@@ -33,15 +33,36 @@ def model_inputs(device_batch, device) -> Dict:
     return d
 
 
+def batch_pytree(device_batch) -> Dict:
+    """A DeviceBatch as the JAX package's batch pytree of host arrays
+    (JAX step.py ``batch_pytree``): ``graphs`` (one array dict a molecule
+    position), ``targets``, ``mask``, ``weights``, and ``features`` /
+    ``atom_descriptors`` when present. The parallel modules group and
+    stack these."""
+    d = {"graphs": list(device_batch.graph_arrays),
+         "targets": device_batch.targets, "mask": device_batch.mask,
+         "weights": device_batch.data_weights}
+    for key in ("features", "atom_descriptors"):
+        if getattr(device_batch, key) is not None:
+            d[key] = getattr(device_batch, key)
+    return d
+
+
+def pytree_tensors(tree: Dict, device) -> Dict:
+    """A batch pytree (:func:`batch_pytree`) as tensors on ``device``, in
+    the layout of :func:`batch_tensors`."""
+    d = {"graphs": [batch_to_tensors(g, device) for g in tree["graphs"]]}
+    for key, value in tree.items():
+        if key != "graphs":
+            d[key] = torch.as_tensor(value, dtype=torch.float32,
+                                     device=device)
+    return d
+
+
 def batch_tensors(device_batch, device) -> Dict:
     """DeviceBatch (host arrays) -> tensors on ``device``: the model's
     inputs, targets, mask and loss weights."""
-    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
-    d = model_inputs(device_batch, device)
-    d.update(targets=as_t(device_batch.targets),
-             mask=as_t(device_batch.mask),
-             weights=as_t(device_batch.data_weights))
-    return d
+    return pytree_tensors(batch_pytree(device_batch), device)
 
 
 def make_loss_fn(cfg: ModelConfig,
@@ -85,29 +106,41 @@ class TrainStep:
       ``max / max(norm, max)`` with ``norm`` taken over them.
     * The learning rate of update ``k`` (0-based) is ``schedule(k)``;
       ``count`` is that ``k``, saved and restored with the optimizer state.
+    * ``reduce(params, loss) -> loss``, when given, runs after the backward:
+      the parallel steps sum the gradients and the loss over their ranks
+      there (parallel/partition.py ``flat_all_reduce``).
     """
 
     def __init__(self, model: MoleculeModel, optimizer: torch.optim.Optimizer,
                  schedule: Schedule, loss_fn: Callable,
                  grad_clip: Optional[float] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 reduce: Optional[Callable] = None):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
         self.loss_fn = loss_fn
         self.grad_clip = grad_clip
         self.generator = generator
+        self.reduce = reduce
         self.count = 0
         self._trainable = [p for g in optimizer.param_groups
                            for p in g["params"]]
 
-    def __call__(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    def backward(self, batch) -> torch.Tensor:
+        """The loss of ``batch``, its gradients accumulated into ``.grad``."""
+        loss = self.loss_fn(self.model, batch, self.generator)
+        loss.backward()
+        return loss.detach()
+
+    def __call__(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         self.model.train()
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
-        loss = self.loss_fn(self.model, batch, self.generator)
-        loss.backward()
+        loss = self.backward(batch)
+        if self.reduce is not None:
+            loss = self.reduce(params, loss)
         gnorm = global_norm([p.grad for p in params if p.grad is not None])
         if self.grad_clip:
             grads = [p.grad for p in self._trainable if p.grad is not None]
@@ -120,4 +153,4 @@ class TrainStep:
             group["lr"] = lr
         self.optimizer.step()
         self.count += 1
-        return loss.detach(), gnorm
+        return loss, gnorm

@@ -13,15 +13,23 @@ member writes four scalars an epoch into its model directory; with
 ``torch.profiler`` and leaves a Chrome trace there.
 
 The model trains on ``cfg.device``: CUDA unless the caller asks for the
-CPU. Checkpoints are the JAX package's ``.ckpt`` (utils/checkpoint.py),
-optimizer state included, so either package resumes and predicts from the
-other's files.
+CPU. Under ``torchrun`` (a process group of several ranks, cli.py) it
+trains data-parallel (``data_parallel``; on by default for several ranks
+on CUDA) or graph-parallel (``graph_parallel``: each batch's bonds
+edge-partitioned over the ranks, ``graph_parallel_dp`` replicas of that
+on a 2-D mesh; on by default above the bond envelope of 57,344), as the
+JAX trainer does (its trainer.py:308-386, 510-700; parallel/). Every
+rank trains the same model on its share; evaluation, logs and
+checkpoints are rank 0's. Checkpoints are the JAX package's ``.ckpt``
+(utils/checkpoint.py), optimizer state included, so either package
+resumes and predicts from the other's files.
 """
 
 from __future__ import annotations
 
 import csv
 import json
+import math
 import os
 import time
 from random import Random
@@ -29,6 +37,7 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig
 from ..data import (
@@ -52,22 +61,18 @@ from ..models.model import (
     widened_featurization,
 )
 from ..models.nn import compute_pnorm, param_count
+from ..parallel.dp import make_dp_train_step
+from ..parallel.mesh import make_mesh, world
+from ..parallel.multihost import rank_device
+from ..parallel.partition import (build_edge_shards_halo_dp,
+                                  flat_all_reduce, make_halo_dp_train_step)
 from ..utils.checkpoint import load_checkpoint, load_opt_leaves, save_checkpoint
 from ..utils.logging import get_logger
 from .evaluate import evaluate
 from .metrics import evaluate_predictions
 from .predict import predict, resolve_device
 from .scheduler import build_optimizer, build_schedule
-from .step import TrainStep, batch_tensors, make_loss_fn
-
-
-def check_training_args(cfg: TrainConfig) -> None:
-    """Raise for what the port cannot train yet (see ROADMAP.md); the
-    unported encoder options raise in EncoderConfig.check_supported."""
-    if cfg.data_parallel or cfg.graph_parallel:
-        raise NotImplementedError(
-            "not on the port yet: data_parallel / graph_parallel (one "
-            "device only)")
+from .step import TrainStep, batch_pytree, batch_tensors, make_loss_fn
 
 
 def _start_profile(device: torch.device):
@@ -231,13 +236,20 @@ def _split(cfg: TrainConfig, data: MoleculeDataset, fcfg):
         crossval_index_dir=cfg.crossval_index_dir)
 
 
+GP_AUTO_BOND_ENVELOPE = 57344   # JAX trainer.py:366
+
+
 def run_training(cfg: TrainConfig, data: MoleculeDataset,
                  logger=None) -> Dict[str, List[float]]:
     """Train one fold, return test scores per metric
-    (reference run_training.py:28-499)."""
-    check_training_args(cfg)
-    device = resolve_device(cfg.device)
-    log = logger or get_logger("train", cfg.save_dir, cfg.quiet)
+    (reference run_training.py:28-499). With several ranks every rank
+    calls it and all return rank 0's scores."""
+    rank, n_dev = world()
+    main = rank == 0
+    device = rank_device(cfg.device) if n_dev > 1 \
+        else resolve_device(cfg.device)
+    log = logger or get_logger("train", cfg.save_dir if main else None,
+                               cfg.quiet or not main)
     debug, info = log.debug, log.info
     # widened by the dataset's extra atom/bond features (reference
     # cross_validate.py:83-91)
@@ -256,7 +268,7 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
     info(f"Total size = {len(data):,} | train size = {len(train_data):,} | "
          f"val size = {len(val_data):,} | test size = {len(test_data):,}")
 
-    if cfg.save_smiles_splits and cfg.save_dir:
+    if cfg.save_smiles_splits and cfg.save_dir and main:
         from ..utils.splits_io import save_smiles_splits
         save_smiles_splits(cfg.save_dir, train_data, val_data, test_data,
                            data_path=cfg.data_path,
@@ -275,13 +287,70 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
         _normalize_spectra_targets(train_data, val_data, test_data, cfg)
     scalers["data_scaler"] = scaler
 
-    # loaders
+    # data parallelism over the ranks (JAX trainer.py:308-320): each step
+    # takes one micro-batch of ceil(batch_size / ranks) a rank
+    dp_enabled = cfg.data_parallel
+    if dp_enabled is None:      # auto: on for several ranks on CUDA
+        dp_enabled = device.type == "cuda" and n_dev > 1
+    dp_enabled = bool(dp_enabled) and n_dev > 1
+    train_batch_size = cfg.batch_size
+    if dp_enabled:
+        train_batch_size = max(1, math.ceil(cfg.batch_size / n_dev))
+
+    # graph parallelism: edge-partitioned halo training (JAX
+    # trainer.py:322-346). atom_messages and undirected are supported, as
+    # in the JAX package's code (partition.py:793-831)
+    gp_reasons = []
+    if n_dev <= 1:
+        gp_reasons.append("single device")
+    if cfg.dataset_type not in ("regression", "classification",
+                                "multiclass"):
+        gp_reasons.append(f"dataset_type {cfg.dataset_type}")
+    if cfg.features_only:
+        gp_reasons.append("features_only (no message passing to shard)")
+    gp_dp = max(1, int(cfg.graph_parallel_dp))
+    if gp_dp > 1 and n_dev % gp_dp:
+        gp_reasons.append(f"graph_parallel_dp {gp_dp} does not divide "
+                          f"device count {n_dev}")
+    gp_supported = not gp_reasons
+    gp_enabled = cfg.graph_parallel
+    if gp_enabled and not gp_supported:
+        raise ValueError("--graph_parallel is unsupported for this run: "
+                         + ", ".join(gp_reasons))
+    if gp_enabled:
+        dp_enabled = False
+        train_batch_size = cfg.batch_size
+
+    # loaders; the edge partitioner needs the natural (fwd, rev) bond pair
+    # order (JAX trainer.py:353-357)
     set_cache_graph(len(data) <= cfg.cache_cutoff and not cfg.no_cache_mol)
     loader_kw = dict(batch_size=cfg.batch_size, num_workers=cfg.num_workers,
                      use_native=cfg.use_native_featurizer)
-    train_loader = MoleculeDataLoader(
-        train_data, fcfg, shuffle=True, seed=cfg.seed,
-        class_balance=cfg.class_balance, **loader_kw)
+
+    def make_train_loader(batch_size, gp):
+        return MoleculeDataLoader(
+            train_data, fcfg, shuffle=True, seed=cfg.seed,
+            class_balance=cfg.class_balance, sorted_aux=not gp,
+            **dict(loader_kw, batch_size=batch_size))
+
+    train_loader = make_train_loader(train_batch_size, bool(gp_enabled))
+    if gp_enabled is None:
+        # auto: edge-partition above ~2x a chip's per-batch bond optimum
+        # (JAX trainer.py:361-377)
+        gp_enabled = (gp_supported and train_loader.estimated_pad_bonds()
+                      > GP_AUTO_BOND_ENVELOPE)
+        if gp_enabled:
+            dp_enabled = False
+            train_loader = make_train_loader(cfg.batch_size, True)
+    gp_enabled = bool(gp_enabled)
+    if gp_enabled:
+        info(f"Graph-parallel training: edge-partitioned halo exchange "
+             f"over {n_dev} devices"
+             + (f" ({gp_dp} dp x {n_dev // gp_dp} ep)" if gp_dp > 1
+                else ""))
+    elif dp_enabled:
+        info(f"Data-parallel training over {n_dev} devices "
+             f"(micro-batch {train_batch_size})")
     val_loader = MoleculeDataLoader(val_data, fcfg, **loader_kw)
     test_loader = MoleculeDataLoader(test_data, fcfg, **loader_kw)
     # unshuffled train loader for per-epoch train-set evaluation
@@ -292,8 +361,20 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
     # reference quirk kept for parity: the Noam horizon is built with
     # steps_per_epoch = train_size // batch_size (FLOOR) although the
     # trainer steps once per actual batch (ceil), so with a ragged last
-    # batch the rate decays slightly faster than the nominal horizon
+    # batch the rate decays slightly faster than the nominal horizon. A
+    # data-parallel step takes a whole batch too, so the horizon stays
+    # (the JAX trainer divides it by the device count, trainer.py:413-414,
+    # which decays its rate that much faster: ROADMAP.md §3); a 2-D
+    # graph-parallel step takes gp_dp batches
     steps_per_epoch = max(1, len(train_data) // cfg.batch_size)
+    if gp_enabled and gp_dp > 1:
+        steps_per_epoch = max(1, math.ceil(steps_per_epoch / gp_dp))
+    if dp_enabled:
+        dp_mesh = make_mesh(n_dev, ("dp",))
+    if gp_enabled:
+        gp_n_ep = n_dev // gp_dp
+        gp_mesh = make_mesh(n_dev, ("dp", "ep"), shape=(gp_dp, gp_n_ep))
+        gp_fallback_warned = False
 
     try:
         task_names = get_task_names(
@@ -309,7 +390,7 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
     for model_idx in range(cfg.ensemble_size):
         model_dir = os.path.join(save_dir, f"model_{model_idx}") \
             if save_dir else None
-        if model_dir:
+        if model_dir and main:
             os.makedirs(model_dir, exist_ok=True)
 
         # reference-stream init: the reference's own initial weights under
@@ -355,13 +436,44 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
                           if cfg.target_weights is not None else None)
         dropout_gen = None
         if cfg.dropout > 0:
+            # each data-parallel rank draws its own masks
             dropout_gen = torch.Generator(device=device).manual_seed(
-                cfg.pytorch_seed * 1000003 + model_idx)
+                cfg.pytorch_seed * 1000003 + model_idx
+                + (104729 * rank if dp_enabled else 0))
+        loss_fn = make_loss_fn(model_cfg, target_weights,
+                               cfg.alternative_loss_function, None)
+        # with several ranks, a step every rank takes alike (the
+        # graph-parallel fallback, or no parallel mode) averages its
+        # gradients over them, so the ranks keep one set of parameters
         train_step = TrainStep(
-            model, optimizer, schedule,
-            make_loss_fn(model_cfg, target_weights,
-                         cfg.alternative_loss_function, None),
-            grad_clip=cfg.grad_clip, generator=dropout_gen)
+            model, optimizer, schedule, loss_fn, grad_clip=cfg.grad_clip,
+            generator=dropout_gen,
+            reduce=flat_all_reduce(dist.group.WORLD, 1.0 / n_dev)
+            if n_dev > 1 else None)
+        steps = [train_step]
+        if dp_enabled:
+            dp_step = make_dp_train_step(
+                model, optimizer, schedule, dp_mesh, "dp", target_weights,
+                cfg.alternative_loss_function, None, cfg.grad_clip,
+                dropout_gen)
+            steps.append(dp_step)
+        if gp_enabled:
+            gp_dropout = cfg.dropout > 0
+            gp_step = make_halo_dp_train_step(
+                model, optimizer, schedule, gp_mesh,
+                target_weights=target_weights,
+                overlap=cfg.graph_parallel_overlap,
+                dropout_rngs=gp_dropout,
+                use_features=bool(train_data.features_size()),
+                grad_clip=cfg.grad_clip)
+            steps.append(gp_step.train_step)
+            # the dropout seeds of every step, alike on every rank
+            gp_seeds = np.random.default_rng(
+                [cfg.pytorch_seed, model_idx])
+
+        def set_count(count):
+            for st in steps:
+                st.count = count
 
         start_epoch = 0
         # full resume (reference run_training.py:241-263)
@@ -376,14 +488,13 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
             load_jax_params(model, params)
             leaves = load_opt_leaves(resume_path)
             if leaves is not None:
-                train_step.count = opt_state_from_leaves(model, optimizer,
-                                                         leaves)
+                set_count(opt_state_from_leaves(model, optimizer, leaves))
             start_epoch = (saved_epoch or 0) + 1
             info(f"Resumed from {resume_path} at epoch {start_epoch}")
 
         # per-epoch CSV metric log (reference run_training.py:212-231)
         csv_path = os.path.join(model_dir, "train_val_loss_log.csv") \
-            if model_dir else None
+            if model_dir and main else None
         if csv_path and start_epoch == 0:
             header = ["epoch", "train_loss"]
             for metric in cfg.metrics:
@@ -409,12 +520,57 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
         # TensorBoard scalars (reference run_training.py:233-236, 393-402),
         # imported here: the package is optional, as in the JAX package
         tb_writer = None
-        if cfg.tensorboard and model_dir:
+        if cfg.tensorboard and model_dir and main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 tb_writer = SummaryWriter(log_dir=model_dir)
             except Exception as exc:
                 info(f"TensorBoard unavailable ({exc}); skipping event logs")
+
+        def run_step(step, *args, **kwargs):
+            out = step(*args, **kwargs)
+            # every step function shares the optimizer's update count
+            set_count(step.count if isinstance(step, TrainStep)
+                      else step.train_step.count)
+            return out
+
+        def gp_flush(group, losses, gnorms):
+            """One 2-D halo step over ``group`` (one loader batch a dp
+            row), or, for a batch the partitioner refuses, the same
+            batches one by one on the single-device step (JAX
+            trainer.py:639-691)."""
+            nonlocal gp_fallback_warned
+            n_real = len(group)
+            group = group + [group[-1].masked_out()] * (gp_dp - n_real)
+            trees = [batch_pytree(b) for b in group]
+            aw = (train_loader.estimated_pad_atoms() + 7) // 8 * 8
+            try:
+                sharded, replicated = build_edge_shards_halo_dp(
+                    [t["graphs"] for t in trees], gp_n_ep, atom_window=aw,
+                    atom_descriptors_list=[t.get("atom_descriptors")
+                                           for t in trees]
+                    if "atom_descriptors" in trees[0] else None)
+            except ValueError as exc:
+                if not gp_fallback_warned:
+                    info(f"graph_parallel: single-device fallback for an "
+                         f"unshardable batch ({exc})")
+                    gp_fallback_warned = True
+                for b in group[:n_real]:
+                    loss, gnorm = run_step(train_step,
+                                           batch_tensors(b, device))
+                    losses.append(loss)
+                    gnorms.append(gnorm)
+                return
+            stack = lambda k: np.stack([t[k] for t in trees])
+            seeds = gp_seeds.integers(0, 2 ** 31, size=(gp_dp, gp_n_ep))
+            loss, gnorm = run_step(
+                gp_step, sharded, replicated, stack("targets"),
+                stack("mask"), stack("weights"), seeds=seeds,
+                ffn_seed=int(gp_seeds.integers(0, 2 ** 31)),
+                features=stack("features") if "features" in trees[0]
+                else None)
+            losses.append(loss)
+            gnorms.append(gnorm)
 
         eval_args = (num_tasks, cfg.metrics, cfg.dataset_type, device, scaler)
         best_score = float("inf") if cfg.minimize_score else -float("inf")
@@ -423,16 +579,35 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
         for epoch in range(start_epoch, cfg.epochs):
             # a trace of the first epoch (JAX trainer.py:589-593)
             prof = None
-            if cfg.profile_dir and epoch == start_epoch and model_idx == 0:
+            if cfg.profile_dir and epoch == start_epoch and model_idx == 0 \
+                    and main:
                 prof = _start_profile(device)
             losses, gnorms = [], []
             t_epoch = time.perf_counter()
-            for batch in train_loader:
-                loss, gnorm = train_step(batch_tensors(batch, device))
-                # no per-step readback: the epoch's scalars are fetched in
-                # one stacked transfer below
-                losses.append(loss)
-                gnorms.append(gnorm)
+            if dp_enabled:
+                for batch in train_loader.iter_rank(dp_mesh.coord("dp"),
+                                                    n_dev):
+                    loss, gnorm = run_step(dp_step,
+                                           [batch_tensors(batch, device)])
+                    losses.append(loss)
+                    gnorms.append(gnorm)
+            elif gp_enabled:
+                group = []
+                for batch in train_loader:
+                    group.append(batch)
+                    if len(group) == gp_dp:
+                        gp_flush(group, losses, gnorms)
+                        group = []
+                if group:
+                    gp_flush(group, losses, gnorms)
+            else:
+                for batch in train_loader:
+                    loss, gnorm = run_step(train_step,
+                                           batch_tensors(batch, device))
+                    # no per-step readback: the epoch's scalars are
+                    # fetched in one stacked transfer below
+                    losses.append(loss)
+                    gnorms.append(gnorm)
             if losses:
                 fetched = torch.stack(losses + gnorms).cpu().numpy()
                 losses = fetched[:len(losses)].tolist()
@@ -443,42 +618,22 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
                                       model_dir)
                 debug(f"Wrote the profiler trace of epoch {epoch} to "
                       f"{trace}")
-            val_scores = evaluate(model, val_loader, *eval_args)
-            train_scores = evaluate(model, train_eval_loader, *eval_args) \
-                if csv_path else None
-            avg_val = float(np.nanmean(val_scores[cfg.metric]))
-            mean_loss = float(np.mean(losses)) if losses else float("nan")
-            pnorm = compute_pnorm(model.parameters())
-            mean_gnorm = float(np.mean(gnorms)) if gnorms else float("nan")
-            debug(f"Epoch {epoch}: train loss = {mean_loss:.6f}, "
-                  f"val {cfg.metric} = {avg_val:.6f}, "
-                  f"PNorm = {pnorm:.4f}, GNorm = {mean_gnorm:.4f}, "
-                  f"{len(losses) / max(epoch_s, 1e-9):.1f} steps/s")
-            if csv_path:
-                row = [epoch, mean_loss]
-                for metric in cfg.metrics:
-                    tv, vv = train_scores[metric], val_scores[metric]
-                    row += [float(np.nanmean(tv)), float(np.nanmean(vv))]
-                    row += list(tv) + list(vv)
-                row += [pnorm, mean_gnorm]
-                with open(csv_path, "a", newline="") as f:
-                    csv.writer(f).writerow(row)
-            if tb_writer is not None:
-                tb_writer.add_scalar("train_loss", mean_loss, epoch)
-                tb_writer.add_scalar(f"validation_{cfg.metric}", avg_val,
-                                     epoch)
-                tb_writer.add_scalar("param_norm", pnorm, epoch)
-                tb_writer.add_scalar("gradient_norm", mean_gnorm, epoch)
-            # every-epoch resume checkpoint (reference run_training.py:404-409)
-            if model_dir:
-                save("model.ckpt", epoch, with_optimizer=True)
-            improved = (avg_val < best_score) if cfg.minimize_score \
-                else (avg_val > best_score)
-            if improved or epoch == start_epoch:
-                best_score, best_epoch = avg_val, epoch
-                best_state = snapshot()
+            if main:
+                score = _end_of_epoch(
+                    cfg, epoch, model, losses, gnorms, epoch_s, val_loader,
+                    train_eval_loader, eval_args, csv_path, tb_writer, debug)
+                # every-epoch resume checkpoint (run_training.py:404-409)
                 if model_dir:
-                    save("best_model.ckpt", epoch, with_optimizer=False)
+                    save("model.ckpt", epoch, with_optimizer=True)
+                improved = (score < best_score) if cfg.minimize_score \
+                    else (score > best_score)
+                if improved or epoch == start_epoch:
+                    best_score, best_epoch = score, epoch
+                    best_state = snapshot()
+                    if model_dir:
+                        save("best_model.ckpt", epoch, with_optimizer=False)
+            if n_dev > 1:
+                dist.barrier()
 
         if tb_writer is not None:
             tb_writer.close()
@@ -486,7 +641,56 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
              f"{best_score:.6f} on epoch {best_epoch}")
         best_states.append(best_state)
 
-    # test evaluation with ensemble averaging (run_training.py:440-491)
+    ensemble_scores = None
+    if main:
+        ensemble_scores = _test_scores(cfg, model, best_states, test_loader,
+                                       test_data, device, scaler, num_tasks,
+                                       info)
+    if n_dev > 1:
+        box = [ensemble_scores]
+        dist.broadcast_object_list(box, src=0)
+        ensemble_scores = box[0]
+    return ensemble_scores
+
+
+def _end_of_epoch(cfg, epoch, model, losses, gnorms, epoch_s, val_loader,
+                  train_eval_loader, eval_args, csv_path, tb_writer,
+                  debug) -> float:
+    """Evaluate and log one epoch (reference run_training.py:383-402):
+    validation (and, with a CSV log, train-set) scores, the CSV row, the
+    TensorBoard scalars; returns the average validation score."""
+    val_scores = evaluate(model, val_loader, *eval_args)
+    train_scores = evaluate(model, train_eval_loader, *eval_args) \
+        if csv_path else None
+    avg_val = float(np.nanmean(val_scores[cfg.metric]))
+    mean_loss = float(np.mean(losses)) if losses else float("nan")
+    pnorm = compute_pnorm(model.parameters())
+    mean_gnorm = float(np.mean(gnorms)) if gnorms else float("nan")
+    debug(f"Epoch {epoch}: train loss = {mean_loss:.6f}, "
+          f"val {cfg.metric} = {avg_val:.6f}, "
+          f"PNorm = {pnorm:.4f}, GNorm = {mean_gnorm:.4f}, "
+          f"{len(losses) / max(epoch_s, 1e-9):.1f} steps/s")
+    if csv_path:
+        row = [epoch, mean_loss]
+        for metric in cfg.metrics:
+            tv, vv = train_scores[metric], val_scores[metric]
+            row += [float(np.nanmean(tv)), float(np.nanmean(vv))]
+            row += list(tv) + list(vv)
+        row += [pnorm, mean_gnorm]
+        with open(csv_path, "a", newline="") as f:
+            csv.writer(f).writerow(row)
+    if tb_writer is not None:
+        tb_writer.add_scalar("train_loss", mean_loss, epoch)
+        tb_writer.add_scalar(f"validation_{cfg.metric}", avg_val, epoch)
+        tb_writer.add_scalar("param_norm", pnorm, epoch)
+        tb_writer.add_scalar("gradient_norm", mean_gnorm, epoch)
+    return avg_val
+
+
+def _test_scores(cfg, model, best_states, test_loader, test_data, device,
+                 scaler, num_tasks, info) -> Dict[str, List[float]]:
+    """Test evaluation with ensemble averaging (run_training.py:440-491)
+    and the test files."""
     test_targets = test_loader.targets()
     sum_preds = None
     for state in best_states:
@@ -504,10 +708,10 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
     for metric, vals in ensemble_scores.items():
         info(f"Ensemble test {metric} = {np.nanmean(vals):.6f}")
 
-    if save_dir and cfg.save_preds and len(test_data) > 0:
-        _write_test_preds(save_dir, test_data, avg_preds)
-    if save_dir:
-        with open(os.path.join(save_dir, "test_scores.json"), "w") as f:
+    if cfg.save_dir and cfg.save_preds and len(test_data) > 0:
+        _write_test_preds(cfg.save_dir, test_data, avg_preds)
+    if cfg.save_dir:
+        with open(os.path.join(cfg.save_dir, "test_scores.json"), "w") as f:
             json.dump(ensemble_scores, f, indent=4, sort_keys=True)
     return ensemble_scores
 

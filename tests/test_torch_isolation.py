@@ -46,7 +46,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "chem.descriptors.rdkit2d", "ssl",
                  "hyperparameter_optimization", "interpret", "web.app",
                  "web.db", "chem.write", "chem.depict",
-                 "utils.torch_import"):
+                 "utils.torch_import", "parallel", "parallel.mesh",
+                 "parallel.dp", "parallel.partition", "parallel.multihost",
+                 "parallel.gspmd"):
         assert f"polymer_chemprop_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -59,6 +61,23 @@ def test_importing_every_port_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_importing_parallel_starts_no_process_group_and_no_device():
+    """Importing the parallel package (and its modules) starts no process
+    group and initializes no CUDA context: that happens only when a caller
+    asks (``initialize_multihost``)."""
+    code = (
+        "import torch, torch.distributed as dist\n"
+        "import polymer_chemprop_tpu_torch.parallel as p\n"
+        "from polymer_chemprop_tpu_torch.parallel import (dp, gspmd, mesh,"
+        " multihost, partition)\n"
+        "print(dist.is_initialized(), torch.cuda.is_initialized())\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, WORLD_SIZE="2", RANK="0"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "False"], proc.stdout
 
 
 def test_forbidden_names_cover_optax_and_sklearn():

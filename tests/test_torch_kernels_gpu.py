@@ -1012,6 +1012,29 @@ def test_atom_gather_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.gpu
+def test_csr_gather_sum_over_bond_rows(cuda):
+    """The gather entry over a bond-row table (the edge-partitioned
+    encoder's gather VJP, index srev, unit weights; and weighted): against
+    its plain version, and bit for bit the readout of the gathered rows."""
+    _, _, _, a, _ = _batch("molecules", 4, cuda)
+    B = a["srev"].shape[0]
+    gen = torch.Generator(cuda).manual_seed(6)
+    g = torch.randn((B, 64), device=cuda, generator=gen)
+    srev, rp, w = a["srev"], a["rowptr"], a["w_sorted"]
+    before = band_mpnn.launch_counts()
+    got = band_mpnn.csr_gather_sum(g, srev, None, rp)
+    _close(got, band_mpnn.atom_neighbor_sum_plain(g, srev, rp))
+    assert torch.equal(got, band_mpnn.atom_readout(
+        g.index_select(0, srev.long()), torch.ones_like(w), rp))
+    got = band_mpnn.csr_gather_sum(g, srev, w, rp)
+    _close(got, band_mpnn.src_readout_plain(g, w, srev, rp))
+    after = band_mpnn.launch_counts()
+    assert after["atom_neighbor_sum_sorted"] \
+        == before["atom_neighbor_sum_sorted"] + 1
+    assert after["src_readout_sorted"] == before["src_readout_sorted"] + 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("atom_messages", [False, True])
 def test_model_with_features_and_descriptors_card_against_cpu(
         cuda, atom_messages):

@@ -451,7 +451,9 @@ def test_unported_training_options_raise(tmp_path, kw, match):
     tests/test_torch_plain_band_train.py, tests/test_torch_atom_messages.py,
     tests/test_torch_extra_features.py). So do ``tensorboard`` (an event
     file in the model directory) and ``profile_dir`` (a Chrome trace
-    there); ``data_parallel`` still raises."""
+    there). ``data_parallel`` is ported too: in one process it trains on
+    the one device, as the JAX trainer does with one device
+    (tests/test_torch_parallel_trainer.py trains it under torchrun)."""
     kw = dict(kw)
     if match == "profile_dir":
         kw["profile_dir"] = str(tmp_path / "profile")
@@ -475,20 +477,16 @@ def test_unported_training_options_raise(tmp_path, kw, match):
                   atom_descriptors_path=str(tmp_path / "a.npz"))
     cfg = TrainConfig(**dict(dict(data_path=REGRESSION, device="cpu",
                                   save_dir=str(tmp_path)), **SMALL, **kw))
-    if match != "data_parallel":
-        cfg.epochs = 1
-        score, _ = cross_validate(cfg)
-        assert np.isfinite(score)
-        if match == "tensorboard":
-            model_dir = tmp_path / "fold_0" / "model_0"
-            assert any(f.startswith("events.out.tfevents")
-                       for f in os.listdir(model_dir))
-        if match == "profile_dir":
-            traces = os.listdir(tmp_path / "profile")
-            assert traces and all(f.endswith(".json") for f in traces)
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        cross_validate(cfg)
+    cfg.epochs = 1
+    score, _ = cross_validate(cfg)
+    assert np.isfinite(score)
+    if match == "tensorboard":
+        model_dir = tmp_path / "fold_0" / "model_0"
+        assert any(f.startswith("events.out.tfevents")
+                   for f in os.listdir(model_dir))
+    if match == "profile_dir":
+        traces = os.listdir(tmp_path / "profile")
+        assert traces and all(f.endswith(".json") for f in traces)
 
 
 def test_cli_train_defaults_to_cuda_and_takes_cpu(tmp_path):
