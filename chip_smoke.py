@@ -241,15 +241,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    regression.csv and the 200 copolymers, each test score within 1e-3 of
    the same run on one rank in this call.
 
+11. ``sklearn_train`` / ``sklearn_predict`` (no kernel of the port's: the
+   forests and SVMs of ``baselines/`` are tensor code on the card; every
+   fit's tensors must lie on it). (a) ``cli sklearn_train``: the random
+   forest on regression.csv, 3 folds, seed 0, 500 trees, its mean test
+   RMSE within 5% of the reference golden 1.582733; (b) the SVR on
+   regression.csv, then the random forest (also with ``class_weight``
+   "balanced") and the SVC on classification.csv (12 tasks with missing
+   labels: the per-task path), each score printed beside the JAX
+   package's; (c) a 50-tree forest of each kind, an SVR and an SVC fitted
+   on the card and on the CPU from one seed: identical node arrays,
+   predictions within 1e-9 relative, decision values within 1e-6; (d)
+   ``cli sklearn_predict`` from (a)'s fold-0 model.pkl equal to the fold's
+   own test predictions (1e-12); (e) the committed JAX-written pickles
+   (``tests/data/sklearn_jax/``) read with no sklearn loaded, their
+   predictions within 1e-9 relative of sklearn's; (f) 500 trees on
+   regression.csv x 8 (4,000 rows, targets + seeded N(0, 0.1)): fit
+   seconds, trees/s, predict molecules/s. The ``[sklearn]`` lines give fit
+   seconds a fold, SMO iterations and seconds, Platt seconds and the host
+   Morgan time of the 500 molecules.
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3665,6 +3687,294 @@ def parallel_path(card, dev, gb, results):
     return launches
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+SK_DEVICE = "cuda"               # every fit's device (a rehearsal: "cpu")
+SK_TREES = 500                   # the JAX package's num_trees
+SK_CPU_TREES = 50                # the forests fitted on both devices
+SK_FOLDS = 3
+SK_GOLDEN_RMSE = 1.582733        # tests/test_integration.py test_rf_golden
+SK_SCALE_COPIES = 8              # regression.csv x 8 for the timing line
+# the JAX package's scores (scikit-learn 1.9.0 on a CPU, seed 0, one fold
+# unless named), printed beside the port's; its SVC is unseeded
+SK_JAX_SCORES = {"rf_regression": "RMSE 1.553778 (3 folds)",
+                 "svr": "RMSE 1.856614",
+                 "rf_classification": "AUC 0.709334",
+                 "rf_classification_balanced": "not measured",
+                 "svc": "AUC 0.689754 and 0.728665 on two identical runs"}
+FOREST_NODE_FIELDS = ("offsets", "left", "right", "feature", "threshold",
+                      "n_node_samples")
+
+
+def _sk_sync():
+    if SK_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _sk_on_device(model, what):
+    check(all(t.device.type == SK_DEVICE for t in model.tensors()),
+          f"{what}: a fitted tensor is not on {SK_DEVICE}")
+
+
+def _sk_cli(name, argv, built):
+    """``cli sklearn_train`` in-process, recording every estimator that
+    ``_build_model`` makes and timing its ``fit`` (synced); returns (mean
+    score, seconds end to end, seconds in ``fit``)."""
+    from polymer_chemprop_tpu_torch import cli
+    from polymer_chemprop_tpu_torch import sklearn_train as sk
+    build = sk._build_model
+    made, fit_seconds = [], []
+
+    def recording(cfg, single=False):
+        model = build(cfg, single)
+        fit = model.fit
+
+        def timed_fit(X, y):
+            t0 = time.perf_counter()
+            out = fit(X, y)
+            _sk_sync()
+            fit_seconds.append(time.perf_counter() - t0)
+            return out
+        model.fit = timed_fit
+        made.append(model)
+        return model
+
+    save = os.path.join(OUT_DIR, "sklearn", name)
+    shutil.rmtree(save, ignore_errors=True)
+    sk._build_model = recording
+    t0 = time.perf_counter()
+    try:
+        cli.main(["sklearn_train", *argv, "--save_dir", save,
+                  "--device", SK_DEVICE, "--quiet"])
+        _sk_sync()
+    finally:
+        sk._build_model = build
+    seconds = time.perf_counter() - t0
+    for m in made:
+        _sk_on_device(m, name)
+    built[name] = made
+    # the mean over the tasks of each task's mean over the folds
+    with open(os.path.join(save, "test_scores.csv")) as f:
+        rows = list(csv.reader(f))[1:]
+    score = float(np.nanmean([float(r[1]) for r in rows]))
+    return score, seconds, sum(fit_seconds)
+
+
+def _svm_line(name, models, card):
+    iters = [m.n_iter_ for m in models]
+    smo = sum(m.smo_seconds_ for m in models)
+    line = (f"[sklearn] {name}: {len(models)} fits, SMO iterations "
+            f"{min(iters)}-{max(iters)} (total {sum(iters)}), SMO "
+            f"{smo:.3f} s ({1e3 * smo / max(1, sum(iters)):.3f} ms an "
+            "iteration)")
+    if getattr(models[0], "probability", False):
+        platt = sum(m.platt_seconds_ for m in models)
+        line += (f", Platt (5 folds batched + sigmoid fit) {platt:.3f} s, "
+                 f"its SMO iterations {max(m.platt_n_iter_ for m in models)}"
+                 " at most")
+    log(line + f" on {card}")
+
+
+def _sk_forest_pair(make, X, y, card, what):
+    """The same forest fitted on SK_DEVICE and on the CPU: identical node
+    arrays, predictions within 1e-9 relative."""
+    t0 = time.perf_counter()
+    dev_model = make(SK_DEVICE).fit(X[:400], y[:400])
+    _sk_sync()
+    t1 = time.perf_counter()
+    cpu_model = make("cpu").fit(X[:400], y[:400])
+    t2 = time.perf_counter()
+    _sk_on_device(dev_model, what)
+    a, b = dev_model.forest_, cpu_model.forest_
+    for f in FOREST_NODE_FIELDS:
+        check(torch.equal(getattr(a, f).cpu(), getattr(b, f)),
+              f"{what}: {f} differs between {SK_DEVICE} and cpu")
+    for f in ("value", "weighted_n_node_samples", "impurity"):
+        np.testing.assert_allclose(getattr(a, f).cpu().numpy(),
+                                   getattr(b, f).numpy(), rtol=1e-12,
+                                   atol=1e-15)
+    predict = getattr(dev_model, "predict_proba", dev_model.predict)
+    got = np.asarray(predict(X[400:]))
+    want = np.asarray(getattr(cpu_model, "predict_proba",
+                              cpu_model.predict)(X[400:]))
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-300)))
+    log(f"[sklearn] (c) {what}: {int(a.offsets[-1])} nodes, node arrays "
+        f"equal on {SK_DEVICE} and cpu, predictions max rel diff "
+        f"{err:.3e}; fit {t1 - t0:.3f} s on {card}, {t2 - t1:.3f} s on the "
+        "host's CPU")
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-15)
+
+
+def _sk_svm_pair(make, X, y, card, what):
+    """The same SVM fitted on SK_DEVICE and on the CPU: decision values
+    within 1e-6."""
+    dev_model = make(SK_DEVICE).fit(X[:400], y[:400])
+    cpu_model = make("cpu").fit(X[:400], y[:400])
+    _sk_on_device(dev_model, what)
+    got = dev_model.decision_values(X[400:]).cpu().numpy()
+    want = cpu_model.decision_values(X[400:]).numpy()
+    log(f"[sklearn] (c) {what}: SMO iterations {dev_model.n_iter_} on "
+        f"{SK_DEVICE}, {cpu_model.n_iter_} on cpu; decision values max "
+        f"|diff| {np.abs(got - want).max():.3e}; SMO "
+        f"{dev_model.smo_seconds_:.3f} s on {card}, "
+        f"{cpu_model.smo_seconds_:.3f} s on the host's CPU")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    if getattr(dev_model, "probability", False):
+        np.testing.assert_allclose(dev_model.predict_proba(X[400:]),
+                                   cpu_model.predict_proba(X[400:]), rtol=0,
+                                   atol=1e-6)
+
+
+def sklearn_path(card):
+    """Phase 11: ``sklearn_train`` / ``sklearn_predict`` on the card (no
+    kernel of the port's: the forests and SVMs of baselines/ are tensor
+    code). (a) the CLI's random forest on regression.csv, 3 folds, seed 0,
+    500 trees, against the reference golden; (b) SVR, then the random
+    forest (also with class_weight "balanced") and the SVC on
+    classification.csv's 12 tasks; (c) a 50-tree forest of each kind and
+    an SVR and SVC fitted on the card and on the CPU; (d) ``cli
+    sklearn_predict`` from (a)'s model.pkl against the fold's own test
+    predictions; (e) the committed JAX-written pickles read with no
+    sklearn; (f) 500 trees on 4,000 rows."""
+    from polymer_chemprop_tpu_torch import cli
+    from polymer_chemprop_tpu_torch.baselines import forest, svm
+    from polymer_chemprop_tpu_torch.config import PredictConfig
+    from polymer_chemprop_tpu_torch.data import get_data
+    from polymer_chemprop_tpu_torch.sklearn_predict import predict_sklearn
+    from polymer_chemprop_tpu_torch.sklearn_train import (
+        compute_morgan_features)
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(ROOT, "tests", "data")
+    reg_csv = os.path.join(data_dir, "regression.csv")
+    cls_csv = os.path.join(data_dir, "classification.csv")
+    reg = get_data(reg_csv)
+    t0 = time.perf_counter()
+    X = compute_morgan_features(reg, 2, 2048)
+    morgan_ms = 1e3 * (time.perf_counter() - t0)
+    y = np.array([d.targets[0] for d in reg], dtype=np.float64)
+    log(f"[sklearn] host Morgan (radius 2, 2,048 bits) of the "
+        f"{len(reg)} molecules of regression.csv: {morgan_ms:.1f} ms "
+        f"(Python, one thread) on the host of {card}")
+    built = {}
+
+    # (a) the golden
+    rmse, seconds, fit_s = _sk_cli("rf_regression", [
+        "--data_path", reg_csv, "--dataset_type", "regression",
+        "--num_folds", str(SK_FOLDS), "--seed", "0",
+        "--num_trees", str(SK_TREES), "--save_preds"], built)
+    forests = built["rf_regression"]
+    log(f"[sklearn] (a) random forest, regression.csv, {SK_FOLDS} folds, "
+        f"{SK_TREES} trees: test RMSE {rmse:.6f}, golden {SK_GOLDEN_RMSE} "
+        f"({100 * (rmse / SK_GOLDEN_RMSE - 1):+.2f}%), the JAX package "
+        f"{SK_JAX_SCORES['rf_regression']}; fit {fit_s / SK_FOLDS:.3f} s a "
+        f"fold ({len(forests) * SK_TREES / fit_s:.1f} trees/s), "
+        f"{seconds / SK_FOLDS:.3f} s a fold end to end (Morgan, fit, "
+        f"predict, files) on {card}")
+    check(abs(rmse / SK_GOLDEN_RMSE - 1) < 0.05,
+          f"RF RMSE {rmse} not within 5% of {SK_GOLDEN_RMSE}")
+
+    # (b) the other estimators and the per-task path
+    for name, argv in (
+            ("svr", ["--data_path", reg_csv, "--dataset_type", "regression",
+                     "--model_type", "svm"]),
+            ("rf_classification", ["--data_path", cls_csv,
+                                   "--dataset_type", "classification"]),
+            ("rf_classification_balanced", [
+                "--data_path", cls_csv, "--dataset_type", "classification",
+                "--class_weight", "balanced"]),
+            ("svc", ["--data_path", cls_csv, "--dataset_type",
+                     "classification", "--model_type", "svm"])):
+        score, seconds, fit_s = _sk_cli(name, argv, built)
+        check(math.isfinite(score), f"{name} score {score}")
+        metric = "RMSE" if name == "svr" else "AUC"
+        log(f"[sklearn] (b) {name}: test {metric} {score:.6f} (the JAX "
+            f"package: {SK_JAX_SCORES[name]}); {len(built[name])} models, "
+            f"fit {fit_s:.3f} s, {seconds:.3f} s the fold end to end on "
+            f"{card}")
+        if name in ("svr", "svc"):
+            _svm_line(name, built[name], card)
+    check(len(built["rf_classification"]) == 12,
+          "classification.csv did not take the per-task path")
+
+    # (c) the same fits on the card and on the CPU
+    yc = (y > np.median(y)).astype(np.float64)
+    _sk_forest_pair(lambda d: forest.RandomForestRegressor(
+        SK_CPU_TREES, random_state=0, device=d), X, y, card,
+        f"{SK_CPU_TREES}-tree regressor")
+    _sk_forest_pair(lambda d: forest.RandomForestClassifier(
+        SK_CPU_TREES, random_state=0, class_weight="balanced_subsample",
+        device=d), X, yc, card,
+        f"{SK_CPU_TREES}-tree classifier (balanced_subsample)")
+    _sk_svm_pair(lambda d: svm.SVR(device=d), X, y, card, "SVR")
+    _sk_svm_pair(lambda d: svm.SVC(probability=True, random_state=0,
+                                   device=d), X, yc, card, "SVC")
+
+    # (d) sklearn_predict from the port's model.pkl
+    fold = os.path.join(OUT_DIR, "sklearn", "rf_regression", "fold_0")
+    preds_csv = os.path.join(OUT_DIR, "sklearn", "rf_regression_preds.csv")
+    t0 = time.perf_counter()
+    cli.main(["sklearn_predict", "--test_path",
+              os.path.join(fold, "test_preds.csv"), "--checkpoint_path",
+              os.path.join(fold, "model.pkl"), "--preds_path", preds_csv,
+              "--device", SK_DEVICE])
+    _sk_sync()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(fold, "test_preds.csv")) as f:
+        want = np.array([float(r[1]) for r in list(csv.reader(f))[1:]])
+    with open(preds_csv) as f:
+        got = np.array([float(r[1]) for r in list(csv.reader(f))[1:]])
+    log(f"[sklearn] (d) sklearn_predict of fold 0 ({len(got)} molecules) "
+        f"from the port's model.pkl: max |diff| from the fold's own test "
+        f"predictions {np.abs(got - want).max():.3e}; {seconds:.3f} s end "
+        f"to end (read, Morgan, {SK_TREES} trees) on {card}")
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+
+    # (e) the JAX package's pickles, read without sklearn
+    fixtures = os.path.join(data_dir, "sklearn_jax")
+    for name in ("rf_regression", "svr", "rf_classification", "svc"):
+        csv_path = os.path.join(fixtures, f"{name}_preds.csv")
+        with open(csv_path) as f:
+            want = np.array([[float(v) for v in r[1:]]
+                             for r in list(csv.reader(f))[1:]])
+        got = np.array(predict_sklearn(PredictConfig(
+            test_path=csv_path,
+            checkpoint_path=os.path.join(fixtures, f"{name}.pkl"),
+            device=SK_DEVICE)))
+        err = float(np.max(np.abs(got - want)
+                           / np.maximum(np.abs(want), 1e-300)))
+        log(f"[sklearn] (e) JAX-written {name}.pkl: {got.shape[0]} x "
+            f"{got.shape[1]} predictions, max rel diff from sklearn's "
+            f"{err:.3e}")
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-15)
+    loaded = [m for m in sys.modules if m.split(".")[0] == "sklearn"]
+    check(not loaded, f"reading the pickles loaded {loaded}")
+
+    # (f) one timing line at scale
+    rng = np.random.default_rng(0)
+    Xs = np.tile(X, (SK_SCALE_COPIES, 1))
+    ys = np.tile(y, SK_SCALE_COPIES) + rng.normal(0, 0.1, len(Xs))
+    model = forest.RandomForestRegressor(SK_TREES, random_state=0,
+                                         device=SK_DEVICE)
+    t0 = time.perf_counter()
+    model.fit(Xs, ys)
+    _sk_sync()
+    fit_s = time.perf_counter() - t0
+    _sk_on_device(model, "the forest at scale")
+    t0 = time.perf_counter()
+    preds = model.predict(Xs)
+    predict_s = time.perf_counter() - t0
+    check(np.isfinite(preds).all() and preds.shape == ys.shape,
+          "forest predictions at scale")
+    f = model.forest_
+    log(f"[sklearn] (f) {len(Xs):,} rows (regression.csv x "
+        f"{SK_SCALE_COPIES}, targets + N(0, 0.1)), {SK_TREES} trees: fit "
+        f"{fit_s:.3f} s ({SK_TREES / fit_s:.1f} trees/s, "
+        f"{int(f.offsets[-1]):,} nodes, depth {f.max_depth}), predict "
+        f"{len(Xs) / predict_s:,.0f} molecules/s ({predict_s:.3f} s) on "
+        f"{card}")
+    log(f"[sklearn] phase 11 {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
@@ -3688,6 +3998,7 @@ def main() -> int:
     features, features_tc = extra_features_path(card)
     entry, entry_tc = entry_points_path(card)
     parallel = parallel_path(card, dev, gb, results)
+    sklearn_path(card)
     for counts in (fingerprint, training, plain_band, atom_messages,
                    features, entry, parallel,
                    probe_path(card, dev, gb, results)):

@@ -14,6 +14,10 @@ Usage:
     python -m polymer_chemprop_tpu_torch.cli ssl_pretrain --data_path ... \
         --save_dir ... [--device cuda|cpu]
     python -m polymer_chemprop_tpu_torch.cli web --port 5000 [--device cuda|cpu]
+    python -m polymer_chemprop_tpu_torch.cli sklearn_train --data_path ... \
+        --dataset_type ... --save_dir ... [--model_type svm] [--device cpu]
+    python -m polymer_chemprop_tpu_torch.cli sklearn_predict --test_path ... \
+        --checkpoint_dir ... --preds_path ... [--device cuda|cpu]
 
 Each runs on the GPU (``--device cuda``, the default; without a GPU it
 raises) or, when asked, on the CPU with the kernels' plain PyTorch
@@ -21,7 +25,9 @@ versions. Checkpoint directories may hold the JAX package's ``.ckpt``
 files or reference torch ``.pt`` files. Featurization uses the C++ library
 of native_ext.py (built with g++ at first use);
 ``--no_use_native_featurizer`` takes the Python featurizer instead.
-``sklearn_train`` and ``sklearn_predict`` are not on the port.
+``sklearn_train`` fits the port's random forests and SVMs (baselines/) on
+Morgan bits; ``sklearn_predict`` reads the port's ``model.pkl`` and the
+JAX package's, without scikit-learn.
 """
 
 from __future__ import annotations
@@ -57,10 +63,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     elif cmd == "web":
         from .web.app import chemprop_web
         chemprop_web(rest)
-    elif cmd in ("sklearn_train", "sklearn_predict"):
-        print(f"{cmd} is not on the port (see ROADMAP.md); use "
-              f"polymer_chemprop_tpu.cli {cmd}", file=sys.stderr)
-        sys.exit(1)
+    elif cmd == "sklearn_train":
+        from .sklearn_train import sklearn_train
+        sklearn_train(rest)
+    elif cmd == "sklearn_predict":
+        from .sklearn_predict import sklearn_predict
+        sklearn_predict(rest)
     else:
         print(f"unknown command {cmd!r}\n{__doc__}")
         sys.exit(1)

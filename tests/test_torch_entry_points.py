@@ -12,8 +12,8 @@ depiction, the web app and the ``cli`` subcommands.
   byte for byte on 50 SMILES of regression.csv;
 * the web upload -> train -> predict flow through a live server on the
   CPU, its predictions equal to the port's ``make_predictions``;
-* ``cli`` dispatch of hyperopt, interpret, ssl_pretrain and web, and the
-  refusal of ``sklearn_*``.
+* ``cli`` dispatch of hyperopt, interpret, ssl_pretrain, web and
+  ``sklearn_*``.
 """
 
 import csv
@@ -248,8 +248,25 @@ def test_cli_device_flags_reach_the_entry_points(monkeypatch):
 
 
 @pytest.mark.parametrize("cmd", ["sklearn_train", "sklearn_predict"])
-def test_cli_refuses_sklearn(cmd, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main([cmd, "--data_path", "x.csv"])
-    assert exc.value.code == 1
-    assert "not on the port" in capsys.readouterr().err
+def test_cli_dispatches_sklearn(monkeypatch, cmd):
+    """Both subcommands reach their module's entry point, and ``--device``
+    reaches the configuration (the default is cuda)."""
+    from polymer_chemprop_tpu_torch import sklearn_predict, sklearn_train
+    seen = []
+    if cmd == "sklearn_train":
+        monkeypatch.setattr(sklearn_train, "cross_validate",
+                            lambda cfg, train_func: seen.append(
+                                (cfg, train_func)))
+        base = ["--data_path", "x.csv", "--model_type", "svm"]
+    else:
+        monkeypatch.setattr(sklearn_predict, "predict_sklearn", seen.append)
+        base = ["--test_path", "x.csv", "--checkpoint_dir", "d"]
+    cli.main([cmd, *base])
+    cli.main([cmd, *base, "--device", "cpu"])
+    if cmd == "sklearn_train":
+        assert [c.device for c, _ in seen] == ["cuda", "cpu"]
+        assert all(f is sklearn_train.run_sklearn and c.model_type == "svm"
+                   for c, f in seen)
+    else:
+        assert [a.device for a in seen] == ["cuda", "cpu"]
+        assert all(a.checkpoint_dir == "d" for a in seen)

@@ -48,7 +48,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "web.db", "chem.write", "chem.depict",
                  "utils.torch_import", "parallel", "parallel.mesh",
                  "parallel.dp", "parallel.partition", "parallel.multihost",
-                 "parallel.gspmd"):
+                 "parallel.gspmd", "sklearn_train", "sklearn_predict",
+                 "baselines", "baselines.pickles", "baselines.tree",
+                 "baselines.forest", "baselines.svm", "baselines.linear"):
         assert f"polymer_chemprop_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

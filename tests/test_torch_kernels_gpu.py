@@ -1150,3 +1150,72 @@ def test_ssl_step_card_against_cpu(cuda, with_graph):
     for name, g in want.items():
         err = (got[name] - g).abs().max().item()
         assert err <= 1e-4 * g.abs().max().item() + 1e-6, (name, err)
+
+
+# ---------------------------------------------------------------------------
+# The sklearn baselines (baselines/): no kernel of their own, but every fit
+# runs on the card; one seed grows the same forest and solves the same SVM
+# problems there as on the CPU.
+# ---------------------------------------------------------------------------
+
+def _morgan_regression(n):
+    import csv
+    import os
+
+    from polymer_chemprop_tpu_torch.features.generators import (
+        morgan_binary_features_generator,
+    )
+    path = os.path.join(os.path.dirname(__file__), "data", "regression.csv")
+    with open(path) as f:
+        rows = list(csv.reader(f))[1:n + 1]
+    X = np.stack([morgan_binary_features_generator(r[0]) for r in rows])
+    return X, np.array([float(r[1]) for r in rows])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["regressor", "classifier"])
+def test_sklearn_forest_card_against_cpu(cuda, kind):
+    """Identical node arrays; predictions within 1e-9 relative."""
+    from polymer_chemprop_tpu_torch.baselines import forest
+    X, y = _morgan_regression(300)
+    if kind == "classifier":
+        y = (y > np.median(y)).astype(float)
+        make = lambda dev: forest.RandomForestClassifier(  # noqa: E731
+            20, random_state=0, class_weight="balanced_subsample",
+            device=dev)
+    else:
+        make = lambda dev: forest.RandomForestRegressor(  # noqa: E731
+            20, random_state=0, device=dev)
+    card = make(cuda).fit(X[:250], y[:250])
+    cpu = make("cpu").fit(X[:250], y[:250])
+    assert all(t.device.type == "cuda" for t in card.tensors())
+    for a, b in zip(card.tensors()[:4], cpu.tensors()[:4]):
+        assert torch.equal(a.cpu(), b)
+    predict = (lambda m: m.predict_proba(X[250:])) if kind == "classifier" \
+        else (lambda m: m.predict(X[250:]))
+    np.testing.assert_allclose(predict(card), predict(cpu), rtol=1e-9,
+                               atol=1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["svr", "svc"])
+def test_sklearn_svm_card_against_cpu(cuda, kind):
+    """Decision values within 1e-6; the same iteration counts."""
+    from polymer_chemprop_tpu_torch.baselines import svm
+    X, y = _morgan_regression(300)
+    if kind == "svc":
+        y = (y > np.median(y)).astype(float)
+        make = lambda dev: svm.SVC(probability=True, device=dev)  # noqa: E731
+    else:
+        make = lambda dev: svm.SVR(device=dev)  # noqa: E731
+    card = make(cuda).fit(X[:250], y[:250])
+    cpu = make("cpu").fit(X[:250], y[:250])
+    assert all(t.device.type == "cuda" for t in card.tensors())
+    assert card.n_iter_ == cpu.n_iter_
+    np.testing.assert_allclose(card.decision_values(X[250:]).cpu().numpy(),
+                               cpu.decision_values(X[250:]).numpy(),
+                               rtol=0, atol=1e-6)
+    if kind == "svc":
+        np.testing.assert_allclose(card.predict_proba(X[250:]),
+                                   cpu.predict_proba(X[250:]), rtol=0,
+                                   atol=1e-6)
