@@ -1394,14 +1394,18 @@ def gather_checks(bm, results, flush, dev, gb):
 def write_checkpoint(path, polymer: bool, hidden: int = HIDDEN,
                      features_size: int = 0, descriptors_size: int = 0,
                      atom_extra: int = 0, bond_extra: int = 0,
-                     scalers=None, **options):
+                     scalers=None, copy_seed=None, **options):
     """A full-width checkpoint in the JAX package's .ckpt format, from
     seeded numpy weights (Xavier-normal, as the JAX init draws them).
     ``options`` are further TrainConfig fields (``param_dtype``,
-    ``atom_messages``, the extra inputs). The extra widths: molecule
-    features (the FFN's input), atom descriptors (W_d and the FFN's input),
-    extra atom and bond features (W_i, W_h, W_o); ``features_only`` leaves
-    the encoder out. ``scalers`` are saved beside the target scaler."""
+    ``atom_messages``, the extra inputs, ``number_of_molecules``). The
+    extra widths: molecule features (the FFN's input), atom descriptors
+    (W_d and the FFN's input), extra atom and bond features (W_i, W_h,
+    W_o); ``features_only`` leaves the encoder out. The encoder is listed
+    once per molecule position; with ``copy_seed`` the copies after the
+    first are drawn from that seed, as the copies of a shared encoder differ
+    in a file the JAX package trained. ``scalers`` are saved beside the
+    target scaler."""
     from polymer_chemprop_tpu_torch.config import TrainConfig
     from polymer_chemprop_tpu_torch.data import StandardScaler
     from polymer_chemprop_tpu_torch.features import FeaturizationConfig
@@ -1409,11 +1413,11 @@ def write_checkpoint(path, polymer: bool, hidden: int = HIDDEN,
 
     rng = np.random.default_rng(SEED + (1 if polymer else 0))
 
-    def linear(i, o, bias=True):
-        p = {"w": (rng.normal(size=(i, o)) * (2.0 / (i + o)) ** 0.5)
+    def linear(i, o, bias=True, gen=rng):
+        p = {"w": (gen.normal(size=(i, o)) * (2.0 / (i + o)) ** 0.5)
              .astype(np.float32)}
         if bias:
-            p["b"] = (rng.normal(size=(o,)) * 0.01).astype(np.float32)
+            p["b"] = (gen.normal(size=(o,)) * 0.01).astype(np.float32)
         return p
 
     fc = FeaturizationConfig(polymer=polymer, extra_atom_fdim=atom_extra,
@@ -1422,18 +1426,28 @@ def write_checkpoint(path, polymer: bool, hidden: int = HIDDEN,
     # atom_messages: W_i on the atom features, W_h on the messages and the
     # bond features
     am = options.get("atom_messages", False)
-    encoder = {"W_i": linear(fc.atom_fdim if am else fc.bond_fdim(), H,
-                             bias=False),
+
+    def encoder(gen=rng):
+        enc = {"W_i": linear(fc.atom_fdim if am else fc.bond_fdim(), H,
+                             bias=False, gen=gen),
                "W_h": linear(H + (fc.bond_fdim(True) if am else 0), H,
-                             bias=False),
-               "W_o": linear(fc.atom_fdim + H, H)}
-    if D:
-        encoder["W_d"] = linear(H + D, H + D)
+                             bias=False, gen=gen),
+               "W_o": linear(fc.atom_fdim + H, H, gen=gen)}
+        if D:
+            enc["W_d"] = linear(H + D, H + D, gen=gen)
+        return enc
+
+    n_mols = options.get("number_of_molecules", 1)
+    copies = [encoder()] * n_mols
+    if copy_seed is not None:
+        other = np.random.default_rng(copy_seed)
+        copies[1:] = [encoder(other) for _ in range(n_mols - 1)]
     if options.get("features_only"):
         params = {"ffn": [linear(features_size, H), linear(H, 1)]}
     else:
-        params = {"encoders": [encoder],
-                  "ffn": [linear(H + features_size + D, H), linear(H, 1)]}
+        params = {"encoders": copies,
+                  "ffn": [linear(H * n_mols + features_size + D, H),
+                          linear(H, 1)]}
     tcfg = TrainConfig(hidden_size=H, depth=DEPTH, ffn_num_layers=2,
                        ffn_hidden_size=H, polymer=polymer,
                        target_columns=["target"], seed=SEED, **options)
@@ -1471,16 +1485,16 @@ def main_path(card):
         make_predictions,
     )
     os.makedirs(OUT_DIR, exist_ok=True)
-    jobs = []
+    jobs = []   # (name, CSV, checkpoint, molecules a row)
     reg_ckpt = os.path.join(OUT_DIR, "regression", "model.ckpt")
     write_checkpoint(reg_ckpt, polymer=False)
     jobs.append(("regression", os.path.join(ROOT, "tests", "data",
-                                            "regression.csv"), reg_ckpt))
+                                            "regression.csv"), reg_ckpt, 1))
     poly_ckpt = os.path.join(OUT_DIR, "polymer", "model.ckpt")
     write_checkpoint(poly_ckpt, polymer=True)
     poly_csv = os.path.join(OUT_DIR, "polymers.csv")
     polymer_csv(poly_csv)
-    jobs.append(("polymer", poly_csv, poly_ckpt))
+    jobs.append(("polymer", poly_csv, poly_ckpt, 1))
 
     # the regression checkpoint once more at band_precision "highest" (the
     # rev layer's FP32 entry), on its first molecules
@@ -1490,24 +1504,42 @@ def main_path(card):
     smiles = read_smiles(jobs[0][1])[:HIGHEST_MOLECULES]
     with open(hi_csv, "w") as f:
         f.write("smiles\n" + "\n".join(smiles) + "\n")
-    jobs.append(("regression_highest", hi_csv, hi_ckpt))
+    jobs.append(("regression_highest", hi_csv, hi_ckpt, 1))
+
+    # a two-molecule mpn_shared file whose second encoder copy differs, as
+    # one the JAX package trained leaves it: served one encoder a position.
+    # Its copy-0 twin (copy 0 at both positions, the same FFN) is the model
+    # a single shared encoder would serve from it.
+    shared_ckpt = os.path.join(OUT_DIR, "mpn_shared", "model.ckpt")
+    copy0_ckpt = os.path.join(OUT_DIR, "mpn_shared_copy0", "model.ckpt")
+    for path, seed in ((shared_ckpt, SEED + 2), (copy0_ckpt, None)):
+        write_checkpoint(path, polymer=False, copy_seed=seed,
+                         number_of_molecules=2, mpn_shared=True)
+    pairs_csv = os.path.join(OUT_DIR, "pairs.csv")
+    pairs = smiles[:BATCH_SIZE]          # one batch: a few seconds on the CPU
+    with open(pairs_csv, "w") as f:
+        f.write("solvent,solute\n" + "".join(
+            f"{a},{b}\n" for a, b in zip(pairs, pairs[::-1])))
+    jobs.append(("mpn_shared", pairs_csv, shared_ckpt, 2))
 
     from polymer_chemprop_tpu_torch.data import empty_cache
     launches = dict.fromkeys(bm.launch_counts(), 0)
     tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
-    for name, test_path, ckpt in jobs:
-        def run(device, tag, native=None):
+    for name, test_path, ckpt, molecules in jobs:
+        def run(device, tag, native=None, path=ckpt):
             return np.asarray(make_predictions(PredictConfig(
-                test_path=test_path, checkpoint_path=ckpt,
+                test_path=test_path, checkpoint_path=path,
                 preds_path=os.path.join(OUT_DIR, f"{name}_{tag}.csv"),
                 batch_size=BATCH_SIZE, num_workers=4, device=device,
-                use_native_featurizer=native)), dtype=float)
+                use_native_featurizer=native,
+                number_of_molecules=molecules)), dtype=float)
 
         # each featurizer cold (featurization included; the Python path's
         # graph cache emptied first), counts from 0 before each run
         runs = {}
         for featurizer, native in FEATURIZERS:
-            if name == "regression_highest" and native is False:
+            if name in ("regression_highest", "mpn_shared") and \
+                    native is False:
                 continue
             empty_cache()
             bm.reset_launch_counts()
@@ -1537,8 +1569,9 @@ def main_path(card):
             for k in tc_launches:
                 tc_launches[k] += py_tc[k]
         want = run("cpu", "cpu")          # the plain versions on the CPU
-        check(counts["band_rev_layer"] == (DEPTH - 1) * batches, counts)
-        check(counts["atom_readout"] == batches, counts)
+        check(counts["band_rev_layer"] == (DEPTH - 1) * batches * molecules,
+              counts)
+        check(counts["atom_readout"] == batches * molecules, counts)
         check(counts["band_rev_bwd"] == 0, counts)
         check(all(counts[k] == 0 for k in PLAIN_BAND_KERNELS), counts)
         # every layer on the tensor cores at the default "high"; none at
@@ -1555,6 +1588,15 @@ def main_path(card):
         err = np.abs(got - want).max()
         log(f"[main] {name}: max |gpu - cpu| {err:.3e}")
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        if name == "mpn_shared":
+            # the second copy is served: copy 0 at both positions is
+            # another model, far outside the tolerance above
+            gap = np.abs(run("cuda", "gpu_copy0", path=copy0_ckpt)
+                         - got).max()
+            log(f"[main] mpn_shared: max |served - copy 0 at both "
+                f"positions| {gap:.3e}")
+            check(gap > 100 * (1e-5 + 1e-4 * np.abs(want).max()),
+                  f"the second encoder copy changed nothing ({gap:.3e})")
     return launches, tc_launches
 
 

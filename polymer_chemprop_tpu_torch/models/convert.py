@@ -8,8 +8,12 @@ one transpose, in each direction, lives here.
 JAX pytree layout: ``{"encoders": [{"W_i": {...}, "W_h": {...},
 "W_o": {...}}, ...], "ffn": [{...}, ...]}``, each encoder with a ``"W_d"``
 as well in the ``"descriptor"`` mode. With ``mpn_shared`` the JAX list
-repeats one encoder; the port keeps one module. A ``features_only`` model
-has no ``"encoders"`` entry (JAX model.py:67).
+repeats one encoder, and the port keeps one module. The JAX package's
+optimizer then updates each copy with its own position's gradient, so a
+file it trained can hold copies that differ: a shared model refuses such a
+file (:func:`encoder_copies_differ`), and serving builds one encoder per
+position instead (train/make_predictions.py ``serving_model``). A
+``features_only`` model has no ``"encoders"`` entry (JAX model.py:67).
 
 The optimizer state crosses the same way. The JAX package saves its optax
 state as the flat list of leaves (utils/checkpoint.py:94-99), and jax
@@ -54,12 +58,51 @@ def _linear_state(prefix: str, p: Dict) -> Dict[str, torch.Tensor]:
     return state
 
 
+def encoder_copies_differ(params: Dict) -> Optional[str]:
+    """None when every molecule position's encoder equals the first one,
+    leaf for leaf and bit for bit; else the first parameter that differs,
+    with its largest absolute difference."""
+    encoders = params.get("encoders", [])
+    for i, enc in enumerate(encoders[1:], 1):
+        for name in sorted(set(encoders[0]) | set(enc)):
+            first, other = encoders[0].get(name, {}), enc.get(name, {})
+            for leaf in sorted(set(first) | set(other)):
+                where = f"encoders[{i}].{name}.{leaf}"
+                if leaf not in first or leaf not in other:
+                    return f"{where} is missing from one of the copies"
+                a, b = np.asarray(first[leaf]), np.asarray(other[leaf])
+                if a.shape != b.shape:
+                    return (f"{where} has shape {b.shape}, encoders[0]'s "
+                            f"has {a.shape}")
+                if not np.array_equal(a, b):
+                    diff = np.max(np.abs(a.astype(np.float64) - b))
+                    return (f"{where} differs from encoders[0].{name}.{leaf}"
+                            f" by up to {diff:.6g}")
+    return None
+
+
+def check_shared_copies(params: Dict) -> None:
+    """Raise a ValueError, naming the parameter, when the encoder copies
+    of ``params`` differ: a model with ``mpn_shared`` holds one encoder
+    for every molecule position, so it cannot take them."""
+    differ = encoder_copies_differ(params)
+    if differ:
+        raise ValueError(
+            f"{differ}: a model with mpn_shared holds one encoder for every "
+            "molecule position, so it cannot take these copies (serving "
+            "builds one encoder per position; training on from such a file "
+            "is not supported)")
+
+
 def params_from_jax(params: Dict, mpn_shared: bool = False
                     ) -> Dict[str, torch.Tensor]:
-    """JAX parameter pytree (numpy leaves) -> MoleculeModel state dict."""
+    """JAX parameter pytree (numpy leaves) -> MoleculeModel state dict.
+    With ``mpn_shared`` the one encoder is copy 0, once
+    :func:`check_shared_copies` has found the copies equal."""
     state: Dict[str, torch.Tensor] = {}
     encoders = params.get("encoders", [])
     if mpn_shared:
+        check_shared_copies(params)
         encoders = encoders[:1]
     for i, enc in enumerate(encoders):
         extra = set(enc) - set(_ENCODER_LINEARS)

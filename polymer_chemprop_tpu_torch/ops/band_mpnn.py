@@ -211,6 +211,16 @@ def _csr_rows(rowptr: torch.Tensor) -> torch.Tensor:
     return torch.repeat_interleave(atoms, counts)
 
 
+def dst_from_rowptr(rowptr: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The destination atom of each of ``num_rows`` sorted bonds, 0 on the
+    padding rows from ``rowptr[-1]`` on: ops/sorted_aux.py's
+    ``dst_sorted``, rebuilt from ``rowptr`` (int64)."""
+    rows = _csr_rows(rowptr)
+    dst = rows.new_zeros(num_rows)
+    dst[:rows.shape[0]] = rows
+    return dst
+
+
 def atom_readout_plain(m: torch.Tensor, w_sorted: torch.Tensor,
                        rowptr: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`atom_readout`, with ``index_add_``."""
@@ -844,9 +854,7 @@ def atom_readout(m: torch.Tensor, w_sorted: torch.Tensor,
     if dst_sorted is None:
         if not (torch.is_grad_enabled() and m.requires_grad):
             return _atom_readout_forward(m, w_sorted, rowptr)
-        rows = _csr_rows(rowptr)
-        dst_sorted = rows.new_zeros(m.shape[0])
-        dst_sorted[:rows.shape[0]] = rows
+        dst_sorted = dst_from_rowptr(rowptr, m.shape[0])
     return _AtomReadoutFn.apply(m, w_sorted, rowptr, dst_sorted)
 
 

@@ -6,7 +6,8 @@ featurization config and the extra inputs it was trained with (features
 generators inherited from the checkpoint; feature, phase, atom descriptor
 and bond feature files given again), re-apply each member's feature
 scalers, batch with the dst-sorted bond layout, run the model on
-``args.device`` (CUDA unless the caller asks for the CPU), average the
+``args.device`` (CUDA unless the caller asks for the CPU) with one encoder
+per molecule position (:func:`serving_model`), average the
 ensemble, optionally report its variance or individual predictions, and
 write a CSV that keeps every input row ('Invalid SMILES' placeholders for
 rows that do not parse).
@@ -15,6 +16,7 @@ rows that do not parse).
 from __future__ import annotations
 
 import csv
+import dataclasses
 import os
 from typing import List, Optional
 
@@ -24,7 +26,7 @@ from ..config import PredictConfig, TrainConfig, find_checkpoints
 from ..data import (MoleculeDataLoader, get_data, get_data_from_smiles,
                     get_task_names, partition_valid)
 from ..models.convert import load_jax_params
-from ..models.model import MoleculeModel, build_model_config
+from ..models.model import MoleculeModel, ModelConfig, build_model_config
 from ..utils.checkpoint import load_checkpoint
 from .predict import predict, resolve_device
 
@@ -38,6 +40,17 @@ def load_model(ckpt_path: str):
             f"{ckpt_path} is a weights-only checkpoint (no training args); "
             "prediction needs a full checkpoint")
     return params, TrainConfig.from_dict(config_dict), scalers
+
+
+def serving_model(model_cfg: ModelConfig) -> MoleculeModel:
+    """The model that serves checkpoints: one encoder per molecule
+    position, also where training shared one (``mpn_shared``). The JAX
+    package trains each position's copy of a shared encoder on its own
+    gradient, so its files can hold copies that differ; this model applies
+    copy i to position i as the JAX package does, and equal copies give
+    the shared model's function exactly. Every member of an ensemble loads
+    into it."""
+    return MoleculeModel(dataclasses.replace(model_cfg, mpn_shared=False))
 
 
 def update_prediction_args(args: PredictConfig, tcfg: TrainConfig) -> None:
@@ -167,7 +180,7 @@ def make_predictions(args: PredictConfig,
     loader = MoleculeDataLoader(test_data, fcfg, batch_size=args.batch_size,
                                 num_workers=args.num_workers,
                                 use_native=args.use_native_featurizer)
-    model = MoleculeModel(model_cfg).to(device)
+    model = serving_model(model_cfg).to(device)
 
     sum_preds = sq_preds = sum_emb = None
     individual = []

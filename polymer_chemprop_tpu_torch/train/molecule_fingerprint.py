@@ -6,11 +6,12 @@ the encoders' molecule embeddings ("MPN") or the FFN's input to its last
 layer ("last_FFN") of every input row, from one or more JAX-format
 ``.ckpt`` files stacked side by side, run on ``args.device`` (CUDA unless
 the caller asks for the CPU). The extra inputs and each member's feature
-scalers flow through as in make_predictions: the "MPN" fingerprint holds
-the molecule features after the encodings, and a ``"descriptor"`` model
-applies W_d to the given atom descriptors (the JAX package's reads no
-descriptor files). Rows that do not parse keep their place in the CSV
-with 'Invalid SMILES' placeholders.
+scalers flow through as in make_predictions, and so does its model, one
+encoder per molecule position: the "MPN" fingerprint is the positions'
+encodings side by side, then the molecule features, and a
+``"descriptor"`` model applies W_d to the given atom descriptors (the JAX
+package's reads no descriptor files). Rows that do not parse keep their
+place in the CSV with 'Invalid SMILES' placeholders.
 """
 
 from __future__ import annotations
@@ -26,12 +27,13 @@ import torch
 from ..config import PredictConfig, find_checkpoints
 from ..data import MoleculeDataLoader, partition_valid
 from ..models.convert import load_jax_params
-from ..models.model import MoleculeModel, build_model_config
+from ..models.model import build_model_config
 from .make_predictions import (
     _num_tasks,
     apply_scalers,
     load_model,
     load_prediction_data,
+    serving_model,
     update_prediction_args,
 )
 from .predict import resolve_device
@@ -85,7 +87,7 @@ def molecule_fingerprint(args: FingerprintConfig) -> np.ndarray:
     loader = MoleculeDataLoader(test_data, fcfg, batch_size=args.batch_size,
                                 num_workers=args.num_workers,
                                 use_native=args.use_native_featurizer)
-    model = MoleculeModel(model_cfg).to(device).eval()
+    model = serving_model(model_cfg).to(device).eval()
 
     all_fps = []
     for ckpt in ckpts:

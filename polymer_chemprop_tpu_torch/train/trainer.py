@@ -49,6 +49,7 @@ from ..data import (
     split_data,
 )
 from ..models.convert import (
+    check_shared_copies,
     load_jax_params,
     opt_state_from_leaves,
     opt_state_to_leaves,
@@ -160,11 +161,25 @@ def _merge_matching(params, loaded):
     return merge(params, loaded), used, skipped
 
 
+def _as_shared(params, cfg: TrainConfig):
+    """A loaded JAX-layout pytree as a model with ``mpn_shared`` takes it:
+    its first encoder at every molecule position, as the reference loads
+    encoder 0 into its one shared module (so a one-molecule file starts
+    every position). A tree whose copies differ, as the JAX package's
+    training leaves them, raises (models/convert.py
+    ``check_shared_copies``)."""
+    if not cfg.mpn_shared or "encoders" not in params:
+        return params
+    check_shared_copies(params)
+    return dict(params, encoders=params["encoders"][:1]
+                * cfg.number_of_molecules)
+
+
 def _load_frzn_into(params, frzn_path: str, cfg: TrainConfig):
     """Overwrite encoder (+ optionally first FFN layers) weights of a
     JAX-layout pytree from a pretrained checkpoint (reference
     utils.py:172-261 load_frzn_model)."""
-    frzn_params, _, _, _ = load_checkpoint(frzn_path)
+    frzn_params = _as_shared(load_checkpoint(frzn_path)[0], cfg)
 
     def copy_matching(dst, src):
         if isinstance(dst, dict):
@@ -410,7 +425,7 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
         # warm start: only matching-shape parameters are taken
         if cfg.checkpoint_paths:
             warm = cfg.checkpoint_paths[model_idx % len(cfg.checkpoint_paths)]
-            loaded, _, _, _ = load_checkpoint(warm)
+            loaded = _as_shared(load_checkpoint(warm)[0], cfg)
             merged, n_used, n_skipped = _merge_matching(params_to_jax(model),
                                                         loaded)
             load_jax_params(model, merged)

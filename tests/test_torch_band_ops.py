@@ -34,6 +34,7 @@ from polymer_chemprop_tpu_torch.models.encoder import EncoderConfig
 from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
 from polymer_chemprop_tpu_torch.ops import segment
 from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
+from test_torch_threads import torch_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

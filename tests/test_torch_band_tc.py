@@ -63,6 +63,7 @@ from polymer_chemprop_tpu_torch.models.model import (
 from polymer_chemprop_tpu_torch.models.nn import get_activation
 from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
 from polymer_chemprop_tpu_torch.train.step import make_loss_fn
+from test_torch_threads import torch_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -42,6 +42,7 @@ from polymer_chemprop_tpu_torch.models.model import (
     MoleculeModel,
     postprocess_preds,
 )
+from test_torch_threads import torch_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -53,6 +53,7 @@ from polymer_chemprop_tpu_torch.config import PredictConfig, TrainConfig
 from polymer_chemprop_tpu_torch.interpret import interpret
 from polymer_chemprop_tpu_torch.train.make_predictions import make_predictions
 from polymer_chemprop_tpu_torch.web.app import build_app
+from test_torch_threads import torch_threads  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REGRESSION = os.path.join(DATA, "regression.csv")

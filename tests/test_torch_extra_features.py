@@ -83,6 +83,7 @@ from polymer_chemprop_tpu_torch.train.molecule_fingerprint import (
 )
 from polymer_chemprop_tpu_torch.train.step import make_loss_fn
 from polymer_chemprop_tpu_torch.utils.checkpoint import load_checkpoint
+from test_torch_threads import torch_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -32,6 +32,7 @@ from polymer_chemprop_tpu_torch.train.molecule_fingerprint import (
     FingerprintConfig,
     molecule_fingerprint,
 )
+from test_torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")

@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import pytest
+from test_torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "polymer_chemprop_tpu_torch")

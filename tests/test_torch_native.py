@@ -23,6 +23,7 @@ from polymer_chemprop_tpu_torch.data import (MoleculeDataLoader,
                                               MoleculeDatapoint,
                                               MoleculeDataset)
 from polymer_chemprop_tpu_torch.features import FeaturizationConfig, mol2graph
+from test_torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")

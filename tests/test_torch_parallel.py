@@ -32,6 +32,7 @@ from polymer_chemprop_tpu.models import ModelConfig as JaxModelConfig
 from polymer_chemprop_tpu.models import init_model
 from polymer_chemprop_tpu.train.scheduler import build_optimizer as jax_opt
 from polymer_chemprop_tpu_torch import parallel as tpar
+from test_torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-4, 1e-5

@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+from test_torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REGRESSION = os.path.join(REPO, "tests", "data", "regression.csv")

@@ -56,6 +56,7 @@ from polymer_chemprop_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_opt_leaves,
 )
+from test_torch_threads import torch_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -27,6 +27,7 @@ from polymer_chemprop_tpu.train.trainer import build_model_config
 from polymer_chemprop_tpu.utils.checkpoint import save_checkpoint
 from polymer_chemprop_tpu_torch.config import PredictConfig
 from polymer_chemprop_tpu_torch.train.make_predictions import make_predictions
+from test_torch_threads import torch_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -45,6 +45,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts"))
 import band_mxu_probe  # noqa: E402
 import fused_matmul_probe as jax_fused_probe  # noqa: E402
+from test_torch_threads import torch_threads  # noqa: E402,F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -58,6 +58,7 @@ from polymer_chemprop_tpu_torch.utils.checkpoint import (
 from polymer_chemprop_tpu_torch.utils.torch_import import (
     export_reference_checkpoint,
 )
+from test_torch_threads import torch_threads  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REGRESSION = os.path.join(DATA, "regression.csv")

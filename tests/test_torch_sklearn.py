@@ -54,6 +54,7 @@ from polymer_chemprop_tpu_torch.sklearn_train import (
     run_sklearn,
 )
 from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+from test_torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")

@@ -53,6 +53,7 @@ from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
 from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
 from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
 from polymer_chemprop_tpu_torch.utils.checkpoint import load_checkpoint
+from test_torch_threads import torch_threads  # noqa: F401
 
 HIDDEN, DEPTH = 16, 2
 

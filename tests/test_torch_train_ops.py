@@ -40,6 +40,7 @@ from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
 from polymer_chemprop_tpu_torch.train import loss as tloss
 from polymer_chemprop_tpu_torch.train import metrics as tmetrics
 from polymer_chemprop_tpu_torch.train import scheduler as tsched
+from test_torch_threads import torch_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -168,7 +169,12 @@ def test_function_backward_matches_autograd_through_plain(kind, act):
         m, inp, wh, t, act, g_out, g_atoms)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
-    # without dst_sorted the readout rebuilds it from rowptr
+    # without dst_sorted the readout rebuilds it from rowptr: the same
+    # destinations, so the same gradients bit for bit (one thread: each
+    # product sums in one order on both runs)
+    assert torch.get_num_threads() == 1
+    assert torch.equal(band_mpnn.dst_from_rowptr(t["rowptr"], B),
+                       t["dst_sorted"].long())
     again = _port_layer_grads(
         band_mpnn.band_rev_layer,
         lambda x: band_mpnn.atom_readout(x, t["w_sorted"], t["rowptr"]),

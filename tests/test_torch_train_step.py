@@ -48,6 +48,7 @@ from polymer_chemprop_tpu_torch.train.scheduler import (
     build_schedule,
 )
 from polymer_chemprop_tpu_torch.train.step import TrainStep, make_loss_fn
+from test_torch_threads import torch_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
