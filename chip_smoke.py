@@ -261,6 +261,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    seconds a fold, SMO iterations and seconds, Platt seconds and the host
    Morgan time of the 500 molecules.
 
+12. The reference's golden-score configurations
+   (``polymer_chemprop_tpu_torch/goldens.py``: the JAX package's
+   ``TestGoldenScores``, chemprop v1.4's CI goldens) through the module's
+   ``run_golden`` at full width, nothing cut: 10 epochs, 3 folds, seed 0,
+   hidden 300, depth 3, batch 50, at the default ``band_precision``
+   "high" (MPNN configurations, round trips through ``make_predictions``,
+   the graph-parallel one through ``cli train`` under 2-rank torchrun on
+   the one card, the forests and SVMs through ``baselines/``). Each score
+   must lie inside its band: 5% of the reference value, or the round
+   trips' two-sided bands and upper limits. Then the regression golden at
+   ``band_precision="highest"`` (the FP32 entry alone) inside 5%, and the
+   same run on the host's CPU (plain versions): fold by fold, every
+   epoch's train loss and validation score on the card within 1e-2
+   relative of the CPU's, and so the test score of the model each keeps,
+   unless the two keep different epochs of a near-tie (the two epochs'
+   validation scores within 1e-2 of each other on both devices); the mean
+   test scores and the "high" minus "highest" difference are printed.
+   The phase runs the 8 goldens of ``GOLDEN_NAMES`` (the whole set takes
+   over 400 s; the module runs all 25). Each golden's launches of rows 1,
+   2, 3, 3a and 3b are printed and counted.
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -4017,6 +4038,152 @@ def sklearn_path(card):
     log(f"[sklearn] phase 11 {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 12 ---------------------------------------------------------------
+
+GOLDEN_DEVICE = "cuda"           # every golden's device (a rehearsal: "cpu")
+# the goldens of the phase, by the module's names: the whole set took 442.1
+# s through the module on the card (NVIDIA H100 80GB HBM3, 700.00 W), over
+# the phase's 400 s, so the phase runs these 8 (scripts/tpu_goldens.py's
+# four and four more); ``python -m polymer_chemprop_tpu_torch.goldens``
+# runs all 25
+GOLDEN_NAMES = ("reg_rdkit", "cls_morgan", "reaction_morgan",
+                "spectra_exclusions", "regression", "classification",
+                "regression_roundtrip", "regression_graph_parallel")
+GOLDEN_CPU_RTOL = 1e-2           # phase 4's test-score tolerance, card vs CPU
+GOLDEN_ROWS = {"row 1": "band_rev_layer", "row 2": "band_rev_bwd",
+               "row 3": "atom_readout", "row 3a": "atom_neighbor_sum_sorted",
+               "row 3b": "src_readout_sorted"}
+
+
+def _golden_counts(r) -> str:
+    rows = ", ".join(f"{row} {r.launches[name]}"
+                     for row, name in GOLDEN_ROWS.items())
+    fp32 = r.launches["band_rev_layer"] - r.tc_launches["band_rev_layer"]
+    return f"launches {rows} (row 1 on the FP32 entry {fp32})"
+
+
+def _fold_run(save_dir, fold, metric="rmse"):
+    """One fold of a run: each epoch's train loss and validation score
+    (``train_val_loss_log.csv``) and the fold's test score."""
+    fold_dir = os.path.join(save_dir, f"fold_{fold}")
+    with open(os.path.join(fold_dir, "model_0",
+                           "train_val_loss_log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    loss = np.array([float(r["train_loss"]) for r in rows])
+    val = np.array([float(r[f"val_avg_{metric}"]) for r in rows])
+    with open(os.path.join(fold_dir, "test_scores.json")) as f:
+        test = float(np.mean(json.load(f)[metric]))
+    return loss, val, test
+
+
+def hold_folds_to_cpu(card_dir, cpu_dir, card):
+    """The card's run against the CPU's, fold by fold, within
+    GOLDEN_CPU_RTOL: every epoch's train loss and validation score, and the
+    test score of the model each keeps. Each keeps its best validation
+    epoch; where two epochs' validation scores lie closer than the runs
+    differ, the two may keep different epochs (a near-tie of the
+    selection, which moves the fold's test score by the two epochs'
+    difference). Then each device's two epochs must lie within the
+    tolerance of each other, and the fold's test score is printed, not
+    held."""
+    folds = sorted(d for d in os.listdir(card_dir) if d.startswith("fold_"))
+    check(folds and folds == sorted(d for d in os.listdir(cpu_dir)
+                                    if d.startswith("fold_")),
+          f"the card's folds {folds} and the CPU's differ")
+    for fold in range(len(folds)):
+        loss, val, test = _fold_run(card_dir, fold)
+        c_loss, c_val, c_test = _fold_run(cpu_dir, fold)
+        err_loss = float(np.max(np.abs(loss - c_loss) / np.abs(c_loss)))
+        err_val = float(np.max(np.abs(val - c_val) / np.abs(c_val)))
+        best, c_best = int(np.argmin(val)), int(np.argmin(c_val))
+        rel = abs(test - c_test) / abs(c_test)
+        log(f"[golden] highest, fold {fold}, card against CPU over "
+            f"{len(val)} epochs: train loss max rel {err_loss:.2e}, "
+            f"validation rmse max rel {err_val:.2e}; best epoch {best} / "
+            f"{c_best}; test rmse {test:.6f} / {c_test:.6f} (rel "
+            f"{rel:.2e}) on {card}")
+        check(len(val) == len(c_val) and err_loss <= GOLDEN_CPU_RTOL
+              and err_val <= GOLDEN_CPU_RTOL,
+              f"fold {fold}: the card's epochs left the CPU's")
+        if best == c_best:
+            check(rel <= GOLDEN_CPU_RTOL, f"fold {fold}: test score")
+            continue
+        gaps = [abs(v[best] - v[c_best]) / v[c_best] for v in (val, c_val)]
+        log(f"[golden] highest, fold {fold}: the card keeps epoch {best}, "
+            f"the CPU epoch {c_best}; their validation rmse {val[best]:.6f}"
+            f" / {val[c_best]:.6f} on the card, {c_val[best]:.6f} / "
+            f"{c_val[c_best]:.6f} on the CPU (apart {gaps[0]:.2e} and "
+            f"{gaps[1]:.2e}): a near-tie of the selection")
+        check(max(gaps) <= GOLDEN_CPU_RTOL,
+              f"fold {fold}: the selected epochs are no near-tie")
+
+
+def golden_path(card):
+    """Phase 12: the reference's golden-score configurations
+    (``polymer_chemprop_tpu_torch/goldens.py``, the JAX package's
+    ``TestGoldenScores``) on the card at full width, each inside its band;
+    then the regression golden at ``band_precision="highest"`` on the card
+    (inside 5%) and on the card's host CPU (the plain versions), held fold
+    by fold (:func:`hold_folds_to_cpu`). Returns the kernels' launches and
+    those on the tensor cores."""
+    from polymer_chemprop_tpu_torch import goldens
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT_DIR, "goldens")
+    shutil.rmtree(root, ignore_errors=True)
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+    tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
+
+    def run(g, device, name, **overrides):
+        r = goldens.run_golden(g, device, os.path.join(root, name),
+                               **overrides)
+        if device == GOLDEN_DEVICE:
+            for k, v in r.launches.items():
+                launches[k] += v
+            for k, v in r.tc_launches.items():
+                tc_launches[k] += v
+        return r
+
+    names = GOLDEN_NAMES or list(goldens.GOLDENS)
+    results = []
+    for name in names:
+        g = goldens.resolve(name)
+        r = run(g, GOLDEN_DEVICE, g.name)
+        log(f"[golden] {r.line()} on {card}; {_golden_counts(r)}")
+        check(GOLDEN_DEVICE != "cuda" or g.sklearn
+              or r.launches["band_rev_layer"] > 0,
+              f"{g.name} launched no layer kernel")
+        results.append(r)
+    failed = [r.line() for r in results if not r.ok]
+    log(f"[golden] {len(results) - len(failed)} of {len(results)} inside "
+        f"their bands in {sum(r.seconds for r in results):.1f} s on {card}")
+    check(not failed, f"goldens outside their bands: {failed}")
+
+    reg = goldens.GOLDENS["regression"]
+    high = next(r for r in results if r.name == reg.name)
+    highest = run(reg, GOLDEN_DEVICE, "regression_highest",
+                  band_precision="highest")
+    log(f"[golden] regression at band_precision highest: "
+        f"{highest.line()} on {card}; {_golden_counts(highest)}")
+    check(highest.ok, f"regression at highest: {highest.line()}")
+    check(highest.tc_launches["band_rev_layer"] == 0
+          and (GOLDEN_DEVICE != "cuda"
+               or highest.launches["band_rev_layer"] > 0),
+          "highest did not run the FP32 entry alone")
+    cpu = run(reg, "cpu", "regression_highest_cpu", band_precision="highest")
+    rel_cpu = abs(highest.score - cpu.score) / abs(cpu.score)
+    log(f"[golden] regression at highest on the host's CPU (plain "
+        f"versions): {cpu.score:.6f} in {cpu.seconds:.1f} s; the card "
+        f"{highest.score:.6f}, rel {rel_cpu:.2e}; high - highest on the card "
+        f"{high.score - highest.score:+.6f} "
+        f"({100 * (high.score - highest.score) / highest.score:+.2f}%)")
+    hold_folds_to_cpu(os.path.join(root, "regression_highest"),
+                      os.path.join(root, "regression_highest_cpu"), card)
+    log(f"[golden] phase 12 launches {launches} (tensor cores "
+        f"{tc_launches}), {time.perf_counter() - t_phase:.1f} s")
+    return launches, tc_launches
+
+
 def main() -> int:
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
@@ -4041,13 +4208,14 @@ def main() -> int:
     entry, entry_tc = entry_points_path(card)
     parallel = parallel_path(card, dev, gb, results)
     sklearn_path(card)
+    goldens, goldens_tc = golden_path(card)
     for counts in (fingerprint, training, plain_band, atom_messages,
-                   features, entry, parallel,
+                   features, entry, parallel, goldens,
                    probe_path(card, dev, gb, results)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     for counts in (fingerprint_tc, training_tc, plain_band_tc, features_tc,
-                   entry_tc):
+                   entry_tc, goldens_tc):
         for name, count in counts.items():
             tc_launches[name] += count
     check(all(count > 0 for count in launches.values()),

@@ -12,7 +12,8 @@ from test_torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "polymer_chemprop_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "optax", "sklearn", "polymer_chemprop_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "sklearn", "polymer_chemprop_tpu",
+             "scripts")
 
 
 def _port_modules():
@@ -51,7 +52,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "parallel.dp", "parallel.partition", "parallel.multihost",
                  "parallel.gspmd", "sklearn_train", "sklearn_predict",
                  "baselines", "baselines.pickles", "baselines.tree",
-                 "baselines.forest", "baselines.svm", "baselines.linear"):
+                 "baselines.forest", "baselines.svm", "baselines.linear",
+                 "goldens"):
         assert f"polymer_chemprop_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -88,6 +90,8 @@ def test_forbidden_names_cover_optax_and_sklearn():
     assert _forbidden("polymer_chemprop_tpu.train.loss")
     assert not _forbidden("polymer_chemprop_tpu_torch.train.loss")
     assert not _forbidden("scipy.stats")
+    # the JAX side's scripts (scripts/tpu_goldens.py among them)
+    assert _forbidden("scripts.tpu_goldens")
 
 
 @pytest.mark.parametrize("path", ["polymer_chemprop_tpu_torch",
@@ -143,6 +147,19 @@ def test_training_without_device_cpu_raises_here(tmp_path):
     assert cfg.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         cross_validate(cfg)
+
+
+def test_goldens_without_device_cpu_raises_here(capsys):
+    """The golden runner defaults to CUDA too: without a GPU it raises
+    before it trains anything."""
+    import torch
+
+    from polymer_chemprop_tpu_torch import goldens
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CUDA default is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        goldens.main(["regression"])
+    assert "GOLDEN" not in capsys.readouterr().out
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
