@@ -20,8 +20,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. Hold each kernel against its plain PyTorch version on the card, on a
    featurized batch of 1024 molecules (about 28k dst-sorted bonds) at
    hidden 300, with unit and polymer (0.25/0.5/0.75) bond weights and
-   several activations: the layer (and its ``z`` output), the layer's VJP
-   kernel ``band_rev_bwd`` and the readout. Tolerance: FP32 with another
+   several activations (and rows 1-3, the layer at every precision, on
+   the EA/IP benchmark's weights 0.075/0.125/0.375/0.85 too, of which
+   0.075 and 0.85 are not bf16-exact; their largest errors printed): the
+   layer (and its ``z`` output), the layer's VJP kernel ``band_rev_bwd``
+   and the readout. Tolerance: FP32 with another
    summation order, so max|kernel - plain| <= 1e-5 * max|plain| + 1e-6.
    The gradients (dm, dW_h, dinp and the readout's dm) of the two
    ``torch.autograd.Function``s are held against PyTorch's autograd
@@ -282,6 +285,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    over 400 s; the module runs all 25). Each golden's launches of rows 1,
    2, 3, 3a and 3b are printed and counted.
 
+13. The fork's polymer checks (``polymer_chemprop_tpu_torch/
+   polymer_goldens.py``: the JAX package's ``tests/test_eaip_benchmark.py``
+   and ``tests/test_polymer_learning.py``) at their own configurations,
+   nothing cut. The reconstructed EA/IP benchmark (``eaip.py``, 972
+   copolymers) through ``cross_validate`` at hidden 300, depth 3, batch
+   50, 60 epochs, seed 0, "high", on the weighted ensemble strings and on
+   the architecture-blind copy: the weighted arm's R² must exceed 0.90 and
+   its RMSE lie below 0.85 x the blind arm's (the JAX package's CPU values
+   printed beside them); the 240-copolymer learning check (hidden 64, 15
+   epochs) must reach R² > 0.8. Both must launch rows 1-3, every row-1
+   launch on the tensor cores. Then the weighted arm at
+   ``band_precision="highest"`` for 10 epochs on the card (row 1 on its
+   FP32 entry alone) and on the host's CPU (plain versions), held epoch
+   by epoch within 1e-2 (as phase 12); and the weighted arm's model served
+   on its test split on the card and the CPU (rtol 1e-4, atol 1e-5).
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -338,6 +357,12 @@ PEAK_BF16_TC_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 TC_PRECISIONS = ("high", "default")     # band_precision on the tensor cores
 TC_WIDTHS = (37, 1495)                  # beside HIDDEN: ragged, the widest
+# the kernel phase's bond weights beside unit ones, drawn for every real
+# bond: multiples of 1/4, and the EA/IP benchmark's (polymer_chemprop_tpu_
+# torch/eaip.py: block chains 0.075 and 0.85, random ones 0.125 and 0.375)
+WEIGHT_SETS = {"polymer": (0.25, 0.5, 0.75),
+               "eaip": (0.075, 0.125, 0.375, 0.85)}
+REV_ROWS = ("band_rev_layer", "band_rev_bwd", "atom_readout")   # rows 1-3
 # |act(a) - act(b)| <= slope |a - b|; selu's steepest slope is scale x alpha
 ACT_SLOPE = {"relu": 1.0, "tanh": 1.0,
              "selu": 1.0507009873554805 * 1.6732632423543772}
@@ -588,10 +613,10 @@ def kernel_phase(dev, gb):
     rng = np.random.default_rng(SEED)
     flush = flush_buffer(dev)   # 1 GiB, 20x the L2
     results = {}
-    for weights in ("unit", "polymer"):
+    for weights in ("unit", *WEIGHT_SETS):
         w = gb.w_bonds
-        if weights == "polymer":
-            w = np.where(w > 0, rng.choice([0.25, 0.5, 0.75], w.shape),
+        if weights != "unit":
+            w = np.where(w > 0, rng.choice(WEIGHT_SETS[weights], w.shape),
                          0.0).astype(np.float32)
         aux = bench_aux(gb, w)
         n_real = int(aux.rowptr[-1])
@@ -615,9 +640,7 @@ def kernel_phase(dev, gb):
                 f"{err:.3e} (tol {tol:.3e}), padding rows max {pad_max}")
             check(err <= tol, "band_rev_layer disagrees with its plain version")
             check(pad_max == 0.0, "padding rows must stay exactly zero")
-            results.setdefault("band_rev_layer", {"max_abs_err": 0.0})
-            r = results["band_rev_layer"]
-            r["max_abs_err"] = max(r["max_abs_err"], err)
+            note_error(results, "band_rev_layer", err, weights)
         got = bm.atom_readout(m, ws, rp)
         ref = bm.atom_readout_plain(m, ws, rp)
         torch.cuda.synchronize()
@@ -625,9 +648,7 @@ def kernel_phase(dev, gb):
         log(f"[kernel] atom_readout {weights}: max_abs_err {err:.3e} "
             f"(tol {tol:.3e})")
         check(err <= tol, "atom_readout disagrees with its plain version")
-        results.setdefault("atom_readout", {"max_abs_err": 0.0})
-        r = results["atom_readout"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        note_error(results, "atom_readout", err, weights)
 
         # the VJP kernel, on a cotangent that is not zero on padding rows
         g = T(rng.normal(size=(B, H)).astype(np.float32))
@@ -640,9 +661,7 @@ def kernel_phase(dev, gb):
         check(err <= tol, "band_rev_bwd disagrees with its plain version")
         check(torch.equal(got[n_real:], -g[n_real:]),
               "dm of padding rows must equal -g")
-        results.setdefault("band_rev_bwd", {"max_abs_err": 0.0})
-        r = results["band_rev_bwd"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        note_error(results, "band_rev_bwd", err, weights)
         if weights == "unit":
             unit_weight_vjps(bm, g, ws, srev, rp, dst, n_real)
 
@@ -711,6 +730,13 @@ def kernel_phase(dev, gb):
             check(err <= tol, "padding rows moved dW_h")
 
         rev_tc_checks(bm, results, weights, T, rng, aux, B, H)
+        if weights == "eaip":
+            # rows 4-7 do not run on the polymer benchmark's path
+            log(f"[kernel] EA/IP weights {WEIGHT_SETS[weights]} (not "
+                "bf16-exact: 0.075, 0.85): max_abs_err row 1 (highest, "
+                "high, default) {:.3e}, row 2 {:.3e}, row 3 {:.3e}".format(
+                    *(results[k]["by_weights"][weights] for k in REV_ROWS)))
+            continue
         if weights == "unit":
             for width in TC_WIDTHS:
                 rev_tc_checks(bm, results, weights, T, rng, aux, B, width)
@@ -836,7 +862,8 @@ def rev_tc_checks(bm, results, weights, T, rng, aux, B, H):
         log(f"[kernel] {what} {weights} H={H}: max_abs_err {err:.3e} "
             f"(tol {tol:.3e})")
         check(err <= tol, f"{what} disagrees with its plain version")
-        note_error(results, "band_rev_layer", err)
+        note_error(results, "band_rev_layer", err,
+                   weights if H == HIDDEN else None)
 
     for precision in TC_PRECISIONS:
         for act in ("relu", "tanh", "selu"):
@@ -910,9 +937,14 @@ def hold_fp64(results, name, what, got, want):
     r["max_rel_err_fp64"] = max(r.get("max_rel_err_fp64", 0.0), err)
 
 
-def note_error(results, name, err):
+def note_error(results, name, err, weights=None):
+    """The kernel's largest error so far, and with ``weights`` named also
+    that weight set's at the bench width."""
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
+    if weights is not None:
+        by = r.setdefault("by_weights", {})
+        by[weights] = max(by.get(weights, 0.0), err)
 
 
 def plain_band_checks(bm, results, weights, T, rng, aux, A, B, H):
@@ -4076,7 +4108,7 @@ def _fold_run(save_dir, fold, metric="rmse"):
     return loss, val, test
 
 
-def hold_folds_to_cpu(card_dir, cpu_dir, card):
+def hold_folds_to_cpu(card_dir, cpu_dir, card, tag="golden"):
     """The card's run against the CPU's, fold by fold, within
     GOLDEN_CPU_RTOL: every epoch's train loss and validation score, and the
     test score of the model each keeps. Each keeps its best validation
@@ -4097,7 +4129,7 @@ def hold_folds_to_cpu(card_dir, cpu_dir, card):
         err_val = float(np.max(np.abs(val - c_val) / np.abs(c_val)))
         best, c_best = int(np.argmin(val)), int(np.argmin(c_val))
         rel = abs(test - c_test) / abs(c_test)
-        log(f"[golden] highest, fold {fold}, card against CPU over "
+        log(f"[{tag}] highest, fold {fold}, card against CPU over "
             f"{len(val)} epochs: train loss max rel {err_loss:.2e}, "
             f"validation rmse max rel {err_val:.2e}; best epoch {best} / "
             f"{c_best}; test rmse {test:.6f} / {c_test:.6f} (rel "
@@ -4109,7 +4141,7 @@ def hold_folds_to_cpu(card_dir, cpu_dir, card):
             check(rel <= GOLDEN_CPU_RTOL, f"fold {fold}: test score")
             continue
         gaps = [abs(v[best] - v[c_best]) / v[c_best] for v in (val, c_val)]
-        log(f"[golden] highest, fold {fold}: the card keeps epoch {best}, "
+        log(f"[{tag}] highest, fold {fold}: the card keeps epoch {best}, "
             f"the CPU epoch {c_best}; their validation rmse {val[best]:.6f}"
             f" / {val[c_best]:.6f} on the card, {c_val[best]:.6f} / "
             f"{c_val[c_best]:.6f} on the CPU (apart {gaps[0]:.2e} and "
@@ -4184,6 +4216,142 @@ def golden_path(card):
     return launches, tc_launches
 
 
+# -- phase 13 ---------------------------------------------------------------
+
+POLYMER_DEVICE = "cuda"          # the checks' device (a rehearsal: "cpu")
+POLYMER_HOLD_EPOCHS = 10         # the weighted arm at "highest", card vs CPU
+POLYMER_OVERRIDES = {}           # none on the card (a rehearsal: a small size)
+
+
+def _rows_launched(counts, tc, what, on_tc):
+    """Rows 1-3 launched in a run's ``counts``; row 1 every time on the
+    tensor cores (``on_tc``, "high") or never ("highest")."""
+    if POLYMER_DEVICE != "cuda":
+        return
+    check(all(counts[k] > 0 for k in REV_ROWS),
+          f"{what}: rows 1-3 did not all launch: {counts}")
+    want = counts["band_rev_layer"] if on_tc else 0
+    check(tc["band_rev_layer"] == want,
+          f"{what}: row 1 on the tensor cores {tc} of {counts}")
+
+
+def polymer_path(card):
+    """Phase 13: the fork's polymer checks
+    (``polymer_chemprop_tpu_torch/polymer_goldens.py``: the JAX package's
+    ``tests/test_eaip_benchmark.py`` and ``tests/test_polymer_learning.py``)
+    on the card at their own configurations, nothing cut; the weighted
+    EA/IP arm at ``band_precision="highest"`` for ``POLYMER_HOLD_EPOCHS``
+    epochs on the card and on the host CPU, held epoch by epoch
+    (:func:`hold_folds_to_cpu`); and the weighted arm's model served on its
+    test split on the card and the CPU. Returns the kernels' launches and
+    those on the tensor cores."""
+    from polymer_chemprop_tpu_torch import eaip
+    from polymer_chemprop_tpu_torch import polymer_goldens as pg
+    from polymer_chemprop_tpu_torch.config import PredictConfig
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.make_predictions import (
+        make_predictions,
+    )
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT_DIR, "polymer_goldens")
+    shutil.rmtree(root, ignore_errors=True)
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+    tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
+
+    def tally(counts, tc):
+        for k, v in counts.items():
+            launches[k] += v
+        for k, v in tc.items():
+            tc_launches[k] += v
+
+    def counted(device, fn):
+        """``fn()`` with its seconds (host clock, synced) and launches;
+        the card's added to the phase's."""
+        bm.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, tc = bm.launch_counts(), bm.tc_launch_counts()
+        if device == POLYMER_DEVICE:
+            tally(counts, tc)
+        return out, seconds, counts, tc
+
+    # 1. EA/IP, both arms at the JAX test's configuration (the weighted
+    # arm's splits kept for serving)
+    r = pg.run_eaip(POLYMER_DEVICE, os.path.join(root, "eaip"),
+                    save_smiles_splits=True, **POLYMER_OVERRIDES)
+    tally(r.launches, r.tc_launches)
+    log(f"[polymer] {r.line()} on {card}")
+    (jw_rmse, jw_r2), (jb_rmse, jb_r2) = (pg.JAX_CPU[a] for a in pg.ARMS)
+    log(f"[polymer] eaip: the JAX package's CPU path (docs/parity.md) "
+        f"weighted rmse {jw_rmse} r2 {jw_r2}, blind rmse {jb_rmse} r2 "
+        f"{jb_r2}; the checks: weighted r2 > {pg.EAIP_R2_MIN}, rmse < "
+        f"{pg.EAIP_RMSE_RATIO_MAX} x blind")
+    check(r.ok, f"eaip: {r.line()}")
+    _rows_launched(r.launches, r.tc_launches, "eaip", on_tc=True)
+
+    # 2. the polymer learning check
+    r = pg.run_polymer_learning(POLYMER_DEVICE,
+                                os.path.join(root, "polymer_learning"),
+                                **POLYMER_OVERRIDES)
+    tally(r.launches, r.tc_launches)
+    log(f"[polymer] {r.line()} on {card}")
+    check(r.ok, f"polymer_learning: {r.line()}")
+    _rows_launched(r.launches, r.tc_launches, "polymer_learning", on_tc=True)
+
+    # 3. the weighted arm at "highest" on the card and the host CPU (plain
+    # versions), held epoch by epoch
+    rows = eaip.generate(blind_weights=False)
+    hold = dict(POLYMER_OVERRIDES, epochs=POLYMER_HOLD_EPOCHS,
+                band_precision="highest")
+    dirs = {d: os.path.join(root, f"weighted_highest_{d}")
+            for d in (POLYMER_DEVICE, "cpu")}
+    for device, save_dir in dirs.items():
+        (rmse, r2), seconds, counts, tc = counted(
+            device, lambda: pg.run_arm(rows, save_dir, device, **hold))
+        if device == POLYMER_DEVICE:
+            _rows_launched(counts, tc, "eaip weighted highest", on_tc=False)
+        log(f"[polymer] eaip weighted at band_precision highest, "
+            f"{POLYMER_HOLD_EPOCHS} epochs, on {device}: rmse {rmse:.6f} r2 "
+            f"{r2:.6f} in {seconds:.1f} s; launches rows 1-3 "
+            f"{[counts[k] for k in REV_ROWS]}")
+    hold_folds_to_cpu(dirs[POLYMER_DEVICE], dirs["cpu"], card, tag="polymer")
+
+    # 4. the weighted arm's model served on its test split
+    weighted = os.path.join(root, "eaip", "weighted")
+    test_csv = os.path.join(weighted, "fold_0", "test_smiles.csv")
+    ckpt = os.path.join(weighted, "fold_0", "model_0", "best_model.ckpt")
+    preds = {}
+    for device in (POLYMER_DEVICE, "cpu"):
+        out, seconds, counts, tc = counted(device, lambda: make_predictions(
+            PredictConfig(test_path=test_csv, checkpoint_path=ckpt,
+                          preds_path=os.path.join(root,
+                                                  f"preds_{device}.csv"),
+                          batch_size=BATCH_SIZE, num_workers=4,
+                          device=device)))
+        preds[device] = np.asarray(out, dtype=float)
+        check(device != "cuda" or (
+            counts["atom_readout"] > 0
+            and tc["band_rev_layer"] == counts["band_rev_layer"] > 0),
+            f"serving: row 1 not on the tensor cores, or no readout: "
+            f"{counts} {tc}")
+        log(f"[polymer] serving the weighted arm's model on its test split "
+            f"({preds[device].shape[0]} copolymers) on {device}: "
+            f"{seconds:.3f} s, launches {counts} (tensor cores {tc})")
+    got, want = preds[POLYMER_DEVICE], preds["cpu"]
+    n_test = len(read_smiles(test_csv))
+    check(got.shape == want.shape == (n_test, 2), (got.shape, want.shape))
+    check(np.isfinite(got).all(), "non-finite predictions")
+    log(f"[polymer] serving: max |card - CPU| {np.abs(got - want).max():.3e}"
+        f" (largest |prediction| {np.abs(want).max():.3f})")
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    log(f"[polymer] phase 13 launches {launches} (tensor cores "
+        f"{tc_launches}), {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, tc_launches
+
+
 def main() -> int:
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
@@ -4209,13 +4377,14 @@ def main() -> int:
     parallel = parallel_path(card, dev, gb, results)
     sklearn_path(card)
     goldens, goldens_tc = golden_path(card)
+    polymer, polymer_tc = polymer_path(card)
     for counts in (fingerprint, training, plain_band, atom_messages,
-                   features, entry, parallel, goldens,
+                   features, entry, parallel, goldens, polymer,
                    probe_path(card, dev, gb, results)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     for counts in (fingerprint_tc, training_tc, plain_band_tc, features_tc,
-                   entry_tc, goldens_tc):
+                   entry_tc, goldens_tc, polymer_tc):
         for name, count in counts.items():
             tc_launches[name] += count
     check(all(count > 0 for count in launches.values()),
