@@ -83,7 +83,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    with ``w[srev]``) against autograd through the plain version; timed at
    the bench shape beside the plain version, the composed form and
    ``index_add_``, at the training batch and at hidden 1,600, each beside
-   its bound.
+   its bound. Then the two sums the single-device encoder runs on row 3's
+   entries (``readout_checks``): the molecule readout over the bench
+   batch's molecule CSR (13,696 atoms into 1,024 molecules), at unit and
+   polymer atom weights and each aggregation, within the kernel tolerance
+   of its ``index_add_`` plain version (output and VJP) and its sum bit
+   for bit the composed ``atom_readout(h[idx], w[idx])``, timed beside the
+   plain version; and ``atom_messages``' ``f_sum`` at the bond-feature
+   width, bit for bit its plain version (sums of 0/1 features).
 3. Serving path: write full-width checkpoints (hidden 300, depth 3, FFN
    2 x 300, seeded random weights) in the JAX package's ``.ckpt`` format,
    one for regression and one for polymer regression, and run the port's
@@ -94,7 +101,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and once with ``use_native_featurizer=False`` (the Python one, graph
    cache emptied first); then 100 molecules from the regression
    checkpoint written at "highest". The kernels' launch counts must equal
-   (depth - 1) x batches and batches, the same for either featurizer,
+   (depth - 1) x batches of the layer, and batches of the atom readout and
+   of the molecule readout (sub-row 3b), the same for either featurizer,
    every layer launch on the tensor cores at "high" and none at
    "highest"; the predictions must be finite, agree between the
    featurizers, and match the same run on the CPU (plain versions, at
@@ -111,7 +119,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    counts of all three kernels must equal what the code implies (forward
    layer = (depth - 1) x (train steps + evaluation batches), all on the
    tensor cores at the default "high", backward = (depth - 1) x train
-   steps, readout = one per forward); every logged
+   steps, the atom readout and the molecule readout (sub-row 3b) one per
+   forward; the molecule readout's VJP is a gather); every logged
    loss is finite and the training loss falls. One optimizer step from the
    same initial weights on the same batch gives the same loss and gradient
    norm on the card as on the CPU (rtol 1e-4: FP32, other summation
@@ -172,8 +181,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``cross_validate`` 3 epochs on regression.csv and 2 on the copolymers
    (first step's loss and gradient norm 1e-4, test score 1e-2 against the
    CPU; the regression run's epoch breakdown and idle share). Exact launch
-   counts: per forward depth - 1 neighbour sums and one readout; per
-   training step one more launch of each (their VJPs); no other kernel.
+   counts: per forward depth - 1 neighbour sums, the atom and the molecule
+   readout (sub-row 3b) and ``f_sum`` (row 3 at unit weights); per
+   training step one more launch of the neighbour sums and the atom
+   readout (their VJPs); no other kernel.
 
 8. Extra features: at the same width, with the C++ featurizer, the C++
    descriptor engine's ``rdkit_2d_normalized`` time for the 500 molecules
@@ -194,8 +205,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    step's loss and gradient norm 1e-4; test scores and per-epoch losses
    1e-2. Exact launch counts as in phases 3, 4 and 7.
 
-9. Entry points: at the same width, with deterministic algorithms on (so
-   that two card runs can be compared bit for bit). ``.pt``: a
+9. Entry points: at the same width, in torch's default mode (every float
+   sum of the port runs in a fixed order, so two card runs compare bit
+   for bit). ``.pt``: a
    ``best_model_full.pt`` exported with ``export_reference_checkpoint``
    from a written checkpoint, beside a stale ``model_0.pt``, serves the
    500 molecules equal to the ``.ckpt``'s bit for bit; a 1-epoch
@@ -301,6 +313,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    by epoch within 1e-2 (as phase 12); and the weighted arm's model served
    on its test split on the card and the CPU (rtol 1e-4, atol 1e-5).
 
+14. One seed, one model (``determinism_path``), in torch's default mode:
+   every case runs twice on the card and must agree bit for bit. Serving
+   regression.csv and the 200 copolymers from phase 3's checkpoints, and
+   both fingerprint types; the EA/IP weighted arm at its full
+   configuration (phase 13's run the first): every epoch's train loss and
+   validation scores, the test RMSE and R² and the best model's
+   parameters' SHA-256; the regression golden (phase 12's run the first)
+   likewise fold by fold; ``atom_messages``, multiclass (3 classes, the
+   JAX package's integration dataset) and an ``ssl_pretrain`` stage, 2
+   epochs each (scores, parameters; SSL's graph embeddings). Then one
+   training step (default, polymer, ``atom_messages``, multiclass, SSL)
+   and one serving batch (default, ``atom_messages``, multiclass, polymer,
+   fingerprint) each under torch.profiler and a dispatch log: no device
+   kernel that adds floats with atomics (``probes/determinism_probe.py``
+   ``atomic_kernel``: ``index_add_``'s ``indexFunc*``, ``scatter_add``,
+   accumulating ``index_put_``), no float atomic dispatched.
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -321,7 +350,8 @@ import numpy as np
 import torch
 
 from polymer_chemprop_tpu_torch.probes.bench_batch import (bench_batch,
-                                                            bench_smiles)
+                                                            bench_smiles,
+                                                            copolymer_csv)
 from polymer_chemprop_tpu_torch.probes.timing import flush_buffer, timed_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -812,6 +842,7 @@ def kernel_phase(dev, gb):
         csr_probe(results, gb)
     train_batch_timings(bm, results, flush, dev)
     gather_checks(bm, results, flush, dev, gb)
+    readout_checks(bm, results, flush, dev, gb)
     return results, B, A
 
 
@@ -1442,6 +1473,81 @@ def gather_checks(bm, results, flush, dev, gb):
             log(line)
 
 
+def readout_checks(bm, results, flush, dev, gb):
+    """The two sums the single-device encoder adds on row 3's entries, at
+    the bench batch's shapes: the molecule readout (``molecule_readout_
+    sorted``: sub-row 3b's gather entry over the molecule CSR, A = 13,696
+    atoms into M = 1,024 molecules at hidden 300), at unit and polymer
+    atom weights, for each aggregation, against its plain version
+    (ops/segment.py ``molecule_readout``: ``index_add_``) within the kernel
+    tolerance, its VJP against autograd through the plain version, and its
+    sum bit for bit the composed ``atom_readout(h[idx], w[idx])`` (the same
+    ``fmaf`` chain); and ``atom_messages``' ``f_sum`` (row 3 at unit
+    weights over the dst-sorted bond features, at their width), which sums
+    0/1 features and so equals its plain version bit for bit. Times of the
+    readout beside its plain version."""
+    from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
+    from polymer_chemprop_tpu_torch.ops import segment
+    t = batch_to_tensors(gb.arrays(sorted_aux=True), dev)
+    aux, a2mol, dop = t["sorted_aux"], t["a2mol"], t["degree_of_polym"]
+    A, M = a2mol.shape[0], dop.shape[0]
+    idx, rp = aux["mol_idx"], aux["mol_rowptr"]
+    gen = torch.Generator(dev).manual_seed(SEED)
+    real = t["w_atoms"] > 0
+    polymer_w = torch.where(real, torch.tensor(
+        [0.25, 0.5, 0.75], device=dev)[torch.randint(
+            0, 3, real.shape, device=dev, generator=gen)], 0.0)
+    h, g = torch.randn((A, HIDDEN), device=dev, generator=gen), \
+        torch.randn((M, HIDDEN), device=dev, generator=gen)
+    for label, w in (("unit", t["w_atoms"]), ("polymer", polymer_w)):
+        denom = torch.zeros(M, device=dev)
+        denom.index_add_(0, a2mol, w)
+        mol_aux = dict(aux, mol_denom=denom)
+        for agg in ("mean", "sum", "norm"):
+            x, y = (h.clone().requires_grad_(True) for _ in range(2))
+            got = bm.molecule_readout_sorted(x, w, a2mol, mol_aux, dop, agg)
+            plain = segment.molecule_readout(y, w, a2mol, M, dop, agg)
+            dh = torch.autograd.grad(got, x, g)[0]
+            dh_plain = torch.autograd.grad(plain, y, g)[0]
+            torch.cuda.synchronize()
+            for what, a, b in (("out", got, plain), ("dh", dh, dh_plain)):
+                err, tol = (a - b).abs().max().item(), kernel_tolerance(b)
+                log(f"[kernel] molecule readout {label} weights {agg} A={A} "
+                    f"M={M} H={HIDDEN} {what}: max_abs_err {err:.3e} (tol "
+                    f"{tol:.3e})")
+                check(err <= tol, f"molecule readout {what} disagrees with "
+                                  "its plain version")
+                if what == "out":
+                    note_error(results, "src_readout", err)
+        wi = w[idx.long()]
+        check(torch.equal(bm.molecule_sum(h, w, a2mol, idx, rp),
+                          bm.atom_readout(h.index_select(0, idx.long()), wi,
+                                          rp)),
+              "the molecule sum is not atom_readout(h[idx], w[idx])")
+    log("[kernel] molecule readout: the sum equals atom_readout(h[idx], "
+        "w[idx]) bit for bit at both weights")
+    ms = timed_ms("molecule readout", lambda: bm.molecule_readout_sorted(
+        h, t["w_atoms"], a2mol, aux, dop), flush)
+    plain_ms = timed_ms("molecule readout plain", lambda: (
+        segment.molecule_readout(h, t["w_atoms"], a2mol, M, dop)), flush)
+    results["src_readout"]["ms_molecule_readout"] = ms
+    results["src_readout"]["plain_ms_molecule_readout"] = plain_ms
+    log(f"[time] molecule readout A={A} M={M} H={HIDDEN}: {ms:.4f} ms, "
+        f"plain (two index_add_) {plain_ms:.4f} ms")
+
+    # the bond features without the source atom's, as the encoder reads
+    f_bonds = t["f_bonds"][:, t["f_atoms"].shape[1]:].contiguous()
+    ones = torch.ones_like(aux["w_sorted"])
+    got = bm.atom_readout(f_bonds, ones, aux["rowptr"])
+    plain = bm.atom_readout_plain(f_bonds, ones, aux["rowptr"])
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain) and got.abs().max() > 0,
+          "f_sum differs from its plain version")
+    log(f"[kernel] atom_messages f_sum (atom_readout, unit weights) B="
+        f"{f_bonds.shape[0]} A={A} H={f_bonds.shape[1]}: equal to its plain "
+        f"version bit for bit (sums of 0/1 features)")
+
+
 # -- phase 3 ----------------------------------------------------------------
 
 def write_checkpoint(path, polymer: bool, hidden: int = HIDDEN,
@@ -1510,25 +1616,10 @@ def write_checkpoint(path, polymer: bool, hidden: int = HIDDEN,
 
 
 def polymer_csv(path, with_target: bool = False):
-    """Synthetic copolymer ensemble strings as in
-    tests/test_integration.py:71-82; ``with_target`` adds a column that
-    depends on composition and chain length, to train on."""
-    rng = np.random.default_rng(SEED)
-    mons = ["[*:1]CC[*:2]", "[*:1]c1ccc([*:2])cc1", "[*:1]CO[*:2]",
-            "[*:1]C(C)C[*:2]", "[*:1]c1ccc([*:2])cc1C"]
-    rows = ["smiles,target" if with_target else "smiles"]
-    for _ in range(N_POLYMERS):
-        i1, i2 = rng.choice(len(mons), 2, replace=False)
-        m1 = mons[i1]
-        m2 = mons[i2].replace("[*:1]", "[*:3]").replace("[*:2]", "[*:4]")
-        w = rng.choice([0.25, 0.5, 0.75])
-        xn = rng.integers(2, 200)
-        row = f'"{m1}.{m2}|{w}|{1 - w}|<1-3:0.5:0.5<2-4:0.5:0.5~{xn}"'
-        if with_target:
-            row += f",{w * i1 + (1 - w) * i2 + 0.5 * np.log10(xn):.4f}"
-        rows.append(row)
-    with open(path, "w") as f:
-        f.write("\n".join(rows) + "\n")
+    """The N_POLYMERS synthetic copolymers (``probes/bench_batch.py``
+    ``copolymer_csv``, seed SEED); ``with_target`` adds a column to train
+    on."""
+    copolymer_csv(path, N_POLYMERS, SEED, with_target)
 
 
 def main_path(card):
@@ -1625,7 +1716,10 @@ def main_path(card):
         check(counts["band_rev_layer"] == (DEPTH - 1) * batches * molecules,
               counts)
         check(counts["atom_readout"] == batches * molecules, counts)
-        check(counts["band_rev_bwd"] == 0, counts)
+        # the molecule readout: one launch of the gather entry a forward
+        check(counts["src_readout_sorted"] == batches * molecules, counts)
+        check(counts["band_rev_bwd"] == counts[GATHER_OPS[
+            "atom_neighbor_sum"]] == 0, counts)
         check(all(counts[k] == 0 for k in PLAIN_BAND_KERNELS), counts)
         # every layer on the tensor cores at the default "high"; none at
         # "highest"
@@ -1690,7 +1784,8 @@ def fingerprint_path(card):
             f"{card}")
         check(counts == dict(dict.fromkeys(counts, 0),
                              band_rev_layer=(DEPTH - 1) * batches,
-                             atom_readout=batches), counts)
+                             atom_readout=batches,
+                             src_readout_sorted=batches), counts)
         check(tc == dict(dict.fromkeys(tc, 0),
                          band_rev_layer=(DEPTH - 1) * batches),
               f"tensor-core launches {tc}")
@@ -1901,7 +1996,10 @@ def training_path(card):
             check(counts["band_rev_layer"] == (DEPTH - 1) * forwards, counts)
             check(counts["band_rev_bwd"] == (DEPTH - 1) * steps, counts)
             check(counts["atom_readout"] == forwards, counts)
-            check(all(counts[k] == 0 for k in PLAIN_BAND_KERNELS), counts)
+            # the molecule readout, whose VJP is a gather
+            check(counts["src_readout_sorted"] == forwards, counts)
+            check(all(counts[k] == 0 for k in PLAIN_BAND_KERNELS)
+                  and counts[GATHER_OPS["atom_neighbor_sum"]] == 0, counts)
             # the default band_precision "high": every layer on the tensor
             # cores
             tc = bm.tc_launch_counts()
@@ -2048,7 +2146,8 @@ def plain_band_path(card, dev):
             f"{score:.6f}, {seconds:.3f} s end to end on {card}")
         tally(counts, {layer_kernel: (DEPTH - 1) * forwards,
                        "band_bwd": (DEPTH - 1) * steps,
-                       "atom_readout": forwards}, tc)
+                       "atom_readout": forwards,
+                       "src_readout_sorted": forwards}, tc)
         check(np.isfinite(score), score)
         with open(os.path.join(cfg.save_dir, "verbose.log")) as f:
             rates = [float(x) for x in
@@ -2080,7 +2179,8 @@ def plain_band_path(card, dev):
             f"{counts}, {n / seconds:.1f} molecules/s end to end "
             f"(graphs cached) on {card}")
         tally(counts, {layer_kernel: (DEPTH - 1) * batches(n),
-                       "atom_readout": batches(n)}, tc)
+                       "atom_readout": batches(n),
+                       "src_readout_sorted": batches(n)}, tc)
         want = predict(ckpt, data_path, f"plain_band_{option}", "cpu")
         check(preds.shape == want.shape == (n, 1), preds.shape)
         check(np.isfinite(preds).all(), "non-finite predictions")
@@ -2110,7 +2210,8 @@ def plain_band_path(card, dev):
         counts = bm.launch_counts()
         k = preds.shape[0]
         tally(counts, {layer_kernel: (DEPTH - 1) * batches(k),
-                       "atom_readout": batches(k)})
+                       "atom_readout": batches(k),
+                       "src_readout_sorted": batches(k)})
         want = predict(ckpt, test_path, tag, "cpu")
         check(np.isfinite(preds).all(), "non-finite predictions")
         log(f"[plain-band] {tag}: {k} molecules, launches {counts}, "
@@ -2319,11 +2420,15 @@ def atom_messages_path(card):
     neighbor, readout = GATHER_OPS.values()
 
     def tally(forwards, steps=0):
-        """The counts since the last reset, exactly as the code implies."""
+        """The counts since the last reset, exactly as the code implies: a
+        forward's neighbour sums, its atom and molecule readouts and its
+        ``f_sum`` (row 3 at unit weights); a step's VJPs of the first two
+        (the molecule readout's is a gather)."""
         counts = bm.launch_counts()
         want = dict.fromkeys(counts, 0)
         want[neighbor] = (DEPTH - 1) * (forwards + steps)
-        want[readout] = forwards + steps
+        want[readout] = 2 * forwards + steps
+        want["atom_readout"] = forwards
         check(counts == want, f"launches {counts}, expected {want}")
         tc = bm.tc_launch_counts()
         check(not any(tc.values()), f"tensor-core launches {tc}")
@@ -2509,11 +2614,13 @@ def extra_features_path(card):
         want = dict.fromkeys(counts, 0)
         if atom_messages:
             want[neighbor] = (DEPTH - 1) * (forwards + steps)
-            want[readout] = forwards + steps
+            want[readout] = 2 * forwards + steps
+            want["atom_readout"] = forwards
         elif forwards:
             want["band_rev_layer"] = (DEPTH - 1) * forwards
             want["band_rev_bwd"] = (DEPTH - 1) * steps
             want["atom_readout"] = forwards
+            want[readout] = forwards
         check(counts == want, f"launches {counts}, expected {want}")
         tc = bm.tc_launch_counts()
         check(tc == dict(dict.fromkeys(tc, 0),
@@ -2778,7 +2885,8 @@ def pt_runs(card, reg_csv, reg_ckpt, launches, tc_launches):
     _tally(tc_launches, tc)
     n = got.shape[0]
     check(counts["band_rev_layer"] == (DEPTH - 1) * math.ceil(n / BATCH_SIZE)
-          and counts["atom_readout"] == math.ceil(n / BATCH_SIZE), counts)
+          and counts["atom_readout"] == counts["src_readout_sorted"]
+          == math.ceil(n / BATCH_SIZE), counts)
     check(got.shape == want.shape == (n, 1) and np.isfinite(got).all(),
           (got.shape, want.shape))
     check(np.array_equal(got, want),
@@ -2897,9 +3005,12 @@ def ssl_runs(card, poly_csv, poly_train_csv, launches, tc_launches):
     epochs = cfg.epochs_stage1 + cfg.epochs_stage2
     steps = epochs * train_batches
     forwards = steps + epochs * val_batches + train_batches  # + embeddings
+    # every forward reads its molecules out on the gather entry: the graph
+    # head's sum in the masked steps, the embeddings' readout
     check(counts["band_rev_layer"] == (DEPTH - 1) * forwards
           and counts["band_rev_bwd"] == (DEPTH - 1) * steps
-          and counts["atom_readout"] == forwards, counts)
+          and counts["atom_readout"] == counts["src_readout_sorted"]
+          == forwards, counts)
     # the masked steps on the FP32 entry, the embeddings at "high"
     check(tc["band_rev_layer"] == (DEPTH - 1) * train_batches, tc)
     emb = np.load(os.path.join(out, "ssl_graph_embeddings.npy"))
@@ -3215,10 +3326,9 @@ def web_runs(card, reg_csv, launches, tc_launches):
 def entry_points_path(card):
     """Phase 9: the remaining entry points on the card at full width
     (hidden 300, depth 3, FFN 2 x 300, relu, mean, batch 50, C++
-    featurizer). Deterministic algorithms are on for the phase
-    (``index_add_`` then sums in a fixed order), so that two card runs
-    can be compared bit for bit. Returns the launches and the tensor-core
-    launches."""
+    featurizer), in torch's default mode: every float sum of the port
+    runs in a fixed order, so two card runs compare bit for bit. Returns
+    the launches and the tensor-core launches."""
     from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
     t0 = time.perf_counter()
     launches = dict.fromkeys(bm.launch_counts(), 0)
@@ -3230,21 +3340,12 @@ def entry_points_path(card):
     polymer_csv(poly_train_csv, with_target=True)
     reg_ckpt = os.path.join(OUT_DIR, "entry", "regression", "model.ckpt")
     write_checkpoint(reg_ckpt, polymer=False, hidden=HIDDEN)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    # the mode would also fill every torch.empty with NaN; keep allocation
-    # as on the other paths
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    with warnings.catch_warnings():
-        # cuBLAS has no deterministic switch without a workspace setting;
-        # its products are deterministic on one stream
-        warnings.filterwarnings("ignore", message=".*deterministic.*")
-        pt_runs(card, reg_csv, reg_ckpt, launches, tc_launches)
-        tensorboard_profile_runs(card, reg_csv, launches, tc_launches)
-        ssl_runs(card, poly_csv, poly_train_csv, launches, tc_launches)
-        hyperopt_runs(card, reg_csv, launches, tc_launches)
-        interpret_runs(card, launches, tc_launches)
-        web_runs(card, reg_csv, launches, tc_launches)
-    torch.use_deterministic_algorithms(False)
+    pt_runs(card, reg_csv, reg_ckpt, launches, tc_launches)
+    tensorboard_profile_runs(card, reg_csv, launches, tc_launches)
+    ssl_runs(card, poly_csv, poly_train_csv, launches, tc_launches)
+    hyperopt_runs(card, reg_csv, launches, tc_launches)
+    interpret_runs(card, launches, tc_launches)
+    web_runs(card, reg_csv, launches, tc_launches)
     log(f"[entry] phase 9 launches {launches} (tensor cores {tc_launches}), "
         f"{time.perf_counter() - t0:.1f} s")
     return launches, tc_launches
@@ -3432,14 +3533,10 @@ def rank_forwards(dev, rank, out, arrays):
     from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
     from polymer_chemprop_tpu_torch import parallel as tpar
     from polymer_chemprop_tpu_torch.parallel import partition, mesh as pm
-    from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
+    from polymer_chemprop_tpu_torch.ops.sorted_aux import sorted_batch
     enc = par_model(dev).encoders[0]
     cfg = enc.cfg
-    aux = build_sorted_aux(arrays["b2dst"], arrays["b2revb"],
-                           arrays["w_bonds"],
-                           num_atoms=arrays["f_atoms"].shape[0])
-    single = dict(arrays, sorted_aux=aux._asdict(),
-                  f_bonds=arrays["f_bonds"][aux.perm])
+    single = sorted_batch(arrays)
     mesh = tpar.make_mesh(2, ("ep",))
     with torch.no_grad():
         want = enc(batch_to_tensors(single, dev))
@@ -3583,6 +3680,7 @@ def host_partition_ms(gb, reps=5) -> float:
     """Median host ms of the ep-2 partition of the bench batch: the
     windows (``build_edge_shards_halo``), then each shard's dst-sorted CSR
     and molecule CSR, as a gp step builds them (numpy, one thread)."""
+    from polymer_chemprop_tpu_torch.ops.sorted_aux import build_molecule_csr
     from polymer_chemprop_tpu_torch.parallel import partition
     arrays = gb.arrays()
     times = []
@@ -3591,9 +3689,10 @@ def host_partition_ms(gb, reps=5) -> float:
         sh, rep = partition.build_edge_shards_halo(arrays, 2)
         for s in range(2):
             one = partition.shard_csr(partition._take(sh, s))
-            partition._mol_csr(one["a2mol_win"],
-                               one["w_atoms_win"] * one["own_mask"],
-                               rep["degree_of_polym"].shape[0])
+            own_w = one["w_atoms_win"] * one["own_mask"]
+            build_molecule_csr(one["a2mol_win"], own_w,
+                               rep["degree_of_polym"].shape[0],
+                               rows=np.nonzero(own_w != 0)[0])
         times.append(1e3 * (time.perf_counter() - t0))
     return float(np.median(times))
 
@@ -4352,6 +4451,233 @@ def polymer_path(card):
     return launches, tc_launches
 
 
+# -- phase 14 ---------------------------------------------------------------
+
+DETERMINISM_DEVICE = "cuda"      # the phase's device (a rehearsal: "cpu")
+DETERMINISM_EPOCHS = 2           # atom_messages, multiclass, SSL's stage
+
+
+def _equal(what, a, b, card):
+    """Two card runs' results ``a`` and ``b`` (nested lists, dicts, floats,
+    strings and arrays) equal in every value; a line that says so."""
+    def norm(x):
+        if isinstance(x, np.ndarray):
+            return ("array", x.shape, x.tobytes())
+        if isinstance(x, dict):
+            return {k: norm(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [norm(v) for v in x]
+        return x
+    check(norm(a) == norm(b), f"{what}: two runs on the card differ")
+    log(f"[determinism] {what}: two runs equal bit for bit on {card}")
+
+
+def determinism_path(card):
+    """Phase 14: one seed gives one model on the card, in torch's default
+    mode. Each case runs twice and must agree bit for bit: serving
+    regression.csv and the 200 copolymers (phase 3's checkpoints) through
+    ``make_predictions``, and ``molecule_fingerprint``'s two types; the
+    EA/IP weighted arm at its full configuration (60 epochs, "high", seed
+    0; phase 13's run is the first) in every epoch's train loss and
+    validation scores, its test RMSE and R² and its best model's
+    parameters (SHA-256); the regression golden (3 folds, 10 epochs;
+    phase 12's run is the first) likewise, fold by fold; and
+    ``atom_messages``, multiclass (3 classes) and an ``ssl_pretrain``
+    stage, ``DETERMINISM_EPOCHS`` epochs each (scores, parameters; SSL's
+    graph embeddings). Then one training step and one serving batch of
+    each configuration run under the profiler and a dispatch log: no
+    device kernel may add floats with atomics (``probes/
+    determinism_probe.py`` ``atomic_kernel``), and no float atomic may be
+    dispatched. Returns the kernels' launches and those on the tensor
+    cores."""
+    from polymer_chemprop_tpu_torch import eaip, goldens
+    from polymer_chemprop_tpu_torch import polymer_goldens as pg
+    from polymer_chemprop_tpu_torch.config import PredictConfig, TrainConfig
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.probes.determinism_probe import (
+        OpLog, atomic_kernel, multiclass_csv, params_sha, profile_kernels,
+        run_record)
+    from polymer_chemprop_tpu_torch.ssl import SSLConfig, ssl_pretrain
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    from polymer_chemprop_tpu_torch.train.make_predictions import (
+        make_predictions,
+    )
+    from polymer_chemprop_tpu_torch.train.molecule_fingerprint import (
+        FingerprintConfig,
+        molecule_fingerprint,
+    )
+    t_phase = time.perf_counter()
+    dev = DETERMINISM_DEVICE
+    root = os.path.join(OUT_DIR, "determinism")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+    tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
+
+    def counted(fn):
+        bm.reset_launch_counts()
+        out = fn()
+        for k, v in bm.launch_counts().items():
+            launches[k] += v
+        for k, v in bm.tc_launch_counts().items():
+            tc_launches[k] += v
+        return out
+
+    reg_csv = os.path.join(ROOT, "tests", "data", "regression.csv")
+    poly_csv = os.path.join(OUT_DIR, "polymers.csv")
+    ckpts = {"regression": os.path.join(OUT_DIR, "regression", "model.ckpt"),
+             "polymer": os.path.join(OUT_DIR, "polymer", "model.ckpt")}
+
+    def serve(name, test_path, tag):
+        return np.asarray(make_predictions(PredictConfig(
+            test_path=test_path, checkpoint_path=ckpts[name],
+            preds_path=os.path.join(root, f"{name}_{tag}.csv"),
+            batch_size=BATCH_SIZE, num_workers=4, device=dev)), dtype=float)
+
+    def fingerprint(fp_type, tag, test_path=reg_csv):
+        return np.asarray(molecule_fingerprint(FingerprintConfig(
+            test_path=test_path, checkpoint_path=ckpts["regression"],
+            preds_path=os.path.join(root, f"fp_{fp_type}_{tag}.csv"),
+            fingerprint_type=fp_type, batch_size=BATCH_SIZE, num_workers=4,
+            device=dev)))
+
+    # 1. serving and fingerprints
+    for name, test_path in (("regression", reg_csv), ("polymer", poly_csv)):
+        a, b = (counted(lambda: serve(name, test_path, k)) for k in "ab")
+        _equal(f"serving {name} ({a.shape[0]} molecules)", a, b, card)
+    for fp_type in ("MPN", "last_FFN"):
+        a, b = (counted(lambda: fingerprint(fp_type, k)) for k in "ab")
+        _equal(f"fingerprint {fp_type} ({a.shape[0]} x {a.shape[1]})", a, b,
+               card)
+
+    # 2. the EA/IP weighted arm, phase 13's run the first
+    first = run_record(os.path.join(OUT_DIR, "polymer_goldens", "eaip",
+                                    "weighted"))
+    t0 = time.perf_counter()
+    rmse, r2 = counted(lambda: pg.run_arm(
+        eaip.generate(blind_weights=False), os.path.join(root, "eaip"), dev,
+        save_smiles_splits=True, **POLYMER_OVERRIDES))
+    second = run_record(os.path.join(root, "eaip"))
+    log(f"[determinism] eaip weighted, {len(second['fold_0']['epochs'])} "
+        f"epochs, \"high\", seed 0: test rmse {rmse!r} r2 {r2!r} (means "
+        f"over EA and IP), parameters sha256 "
+        f"{second['fold_0']['param_sha']} ({time.perf_counter() - t0:.1f} s)")
+    _equal("eaip weighted: every epoch's losses and scores, test rmse and "
+           "r2, parameters", first, second, card)
+
+    # 3. the regression golden, phase 12's run the first
+    reg = goldens.GOLDENS["regression"]
+    first = run_record(os.path.join(OUT_DIR, "goldens", reg.name))
+    r = counted(lambda: goldens.run_golden(
+        reg, GOLDEN_DEVICE, os.path.join(root, "golden_regression")))
+    second = run_record(os.path.join(root, "golden_regression"))
+    log(f"[determinism] regression golden: mean test rmse {r.score!r}, folds "
+        + ", ".join(f"{f['test']['rmse'][0]!r}" for f in second.values())
+        + f" ({r.seconds:.1f} s)")
+    _equal(f"regression golden: {len(second)} folds' epochs, test scores "
+           "and parameters", first, second, card)
+
+    # 4. atom_messages, multiclass and an SSL stage, twice each
+    mc_csv = os.path.join(root, "multiclass.csv")
+    multiclass_csv(mc_csv)
+    base = dict(hidden_size=HIDDEN, ffn_hidden_size=HIDDEN, depth=DEPTH,
+                batch_size=BATCH_SIZE, seed=SEED, num_folds=1, quiet=True,
+                num_workers=4, device=dev)
+    configs = {
+        "default": dict(data_path=reg_csv),
+        "polymer": dict(data_path=os.path.join(OUT_DIR,
+                                               "polymers_train.csv"),
+                        polymer=True),
+        "atom_messages": dict(data_path=reg_csv, atom_messages=True),
+        "multiclass": dict(data_path=mc_csv, dataset_type="multiclass",
+                           multiclass_num_classes=3)}
+
+    def train(name, tag, **kw):
+        save_dir = os.path.join(root, f"{name}_{tag}")
+        cross_validate(TrainConfig(**{
+            **base, "epochs": DETERMINISM_EPOCHS, "save_dir": save_dir,
+            **configs[name], **kw}))
+        return save_dir
+
+    def ssl(tag, **kw):
+        save_dir = os.path.join(root, f"ssl_{tag}")
+        path = ssl_pretrain(SSLConfig(**dict(dict(
+            data_path=poly_csv, save_dir=save_dir, hidden_size=HIDDEN,
+            depth=DEPTH, epochs_stage1=0,
+            epochs_stage2=DETERMINISM_EPOCHS, batch_size=BATCH_SIZE,
+            save_graph_embeddings=True, seed=SEED, quiet=True, device=dev),
+            **kw)))
+        return {"param_sha": params_sha(path), "embeddings": np.load(
+            os.path.join(save_dir, "ssl_graph_embeddings.npy"))}
+
+    for name in ("atom_messages", "multiclass"):
+        a, b = (run_record(counted(lambda: train(name, k))) for k in "ab")
+        _equal(f"{name}, {DETERMINISM_EPOCHS} epochs: epochs, test "
+               f"{a['fold_0']['test']}, parameters "
+               f"{a['fold_0']['param_sha'][:16]}", a, b, card)
+    a, b = (counted(lambda: ssl(k)) for k in "ab")
+    _equal(f"ssl_pretrain stage 2, {DETERMINISM_EPOCHS} epochs: parameters "
+           f"{a['param_sha'][:16]}, graph embeddings {a['embeddings'].shape}",
+           a, b, card)
+
+    # 5. one training step and one serving batch of each, profiled
+    batch_csv = os.path.join(root, "batch.csv")
+    with open(poly_csv) as f:
+        lines = f.readlines()[:BATCH_SIZE + 1]
+    with open(batch_csv, "w") as f:
+        f.writelines(lines)
+    steps = {name: (lambda name=name: train(name, "step", epochs=1,
+                                            max_data_size=60))
+             for name in configs}
+    steps["ssl"] = lambda: ssl("step", epochs_stage2=1, max_data_size=50)
+    reg_batch = os.path.join(root, "batch_reg.csv")
+    with open(reg_csv) as f:
+        lines = f.readlines()[:BATCH_SIZE + 1]
+    with open(reg_batch, "w") as f:
+        f.writelines(lines)
+    # the atom_messages and multiclass models of step 4
+    for name in ("atom_messages", "multiclass"):
+        ckpts[name] = os.path.join(root, f"{name}_a", "fold_0", "model_0",
+                                   "best_model.ckpt")
+    serving = {name: (lambda name=name: serve(name, reg_batch, "batch"))
+               for name in ("regression", "atom_messages", "multiclass")}
+    serving["polymer"] = lambda: serve("polymer", batch_csv, "batch")
+    serving["fingerprint"] = lambda: fingerprint("MPN", "batch", reg_batch)
+    # one profile over every case, serving first: a short profile may miss
+    # the kernels of its last calls; each case under its own dispatch log
+    cases = ([(f"{k} serving batch", v) for k, v in serving.items()]
+             + [(f"{k} training step", v) for k, v in steps.items()])
+    logs = {}
+
+    def run_cases():
+        for what, fn in cases:
+            logs[what] = OpLog(dev, hashes=False)
+            with logs[what]:
+                counted(fn)
+    kernels = profile_kernels(run_cases, dev)
+    for what, op_log in logs.items():
+        # the kernels' plain versions dispatch index_add_ where the device
+        # is the CPU (a rehearsal); on the card none runs
+        atomics = {k: n for k, n in op_log.atomics.items()
+                   if "_plain" not in k[1]}
+        log(f"[determinism] {what}: {op_log.ops} operators dispatched, "
+            f"float atomics among them {atomics or 'none'}")
+        check(op_log.ops > 0 and not atomics,
+              f"{what}: a float sum in no fixed order: {atomics}")
+    bad = sorted(k for k in kernels if atomic_kernel(k))
+    ours = {name: sum(kernels[k] for k in kernels if name in k)
+            for name in ("band_rev_layer", "band_rev_bwd", "atom_readout")}
+    log(f"[determinism] the profile of the {len(cases)} cases: "
+        f"{len(kernels)} distinct kernels, {sum(kernels.values())} launches "
+        f"(rows 1-3 {ours}); atomic float kernels {bad or 'none'}")
+    check(dev != "cuda" or all(ours.values()),
+          f"the profile missed the port's kernels: {ours}")
+    check(not bad, f"kernels that add floats with atomics: {bad}")
+    log(f"[determinism] phase 14 launches {launches} (tensor cores "
+        f"{tc_launches}), {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, tc_launches
+
+
 def main() -> int:
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
@@ -4378,13 +4704,14 @@ def main() -> int:
     sklearn_path(card)
     goldens, goldens_tc = golden_path(card)
     polymer, polymer_tc = polymer_path(card)
+    determinism, determinism_tc = determinism_path(card)
     for counts in (fingerprint, training, plain_band, atom_messages,
-                   features, entry, parallel, goldens, polymer,
+                   features, entry, parallel, goldens, polymer, determinism,
                    probe_path(card, dev, gb, results)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     for counts in (fingerprint_tc, training_tc, plain_band_tc, features_tc,
-                   entry_tc, goldens_tc, polymer_tc):
+                   entry_tc, goldens_tc, polymer_tc, determinism_tc):
         for name, count in counts.items():
             tc_launches[name] += count
     check(all(count > 0 for count in launches.values()),
@@ -4443,7 +4770,8 @@ def main() -> int:
             "ms_train_batch_highest", "tc_launches", "bound_ms_train_batch",
             "bound_ms_train_batch_highest", "gbps", "gbps_train_batch",
             "gbps_h1600", "copy_ms", "launch_ms", "composed_ms",
-            "ms_h1600_idle_start")
+            "ms_h1600_idle_start", "ms_molecule_readout",
+            "plain_ms_molecule_readout")
             if k in r})
         kernels.append(entry)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "

@@ -52,20 +52,18 @@ class GraphBatch:
     def arrays(self, sorted_aux: bool = False) -> dict:
         """The per-batch numpy arrays the encoder consumes.
 
-        With ``sorted_aux=True``, attaches the dst-sorted bond index arrays
-        of :func:`~polymer_chemprop_tpu_torch.ops.sorted_aux.build_sorted_aux`
-        under ``"sorted_aux"`` (the encoder then runs its kernel branch),
-        and ``f_bonds`` is emitted in dst-sorted order: the host permute is
-        free here and keeps a B-row gather off the device."""
+        With ``sorted_aux=True``, in the layout of
+        :func:`~polymer_chemprop_tpu_torch.ops.sorted_aux.sorted_batch`:
+        the dst-sorted bond index arrays and the molecule CSR under
+        ``"sorted_aux"`` (the encoder then runs its kernel branch), and
+        ``f_bonds`` in dst-sorted order: the host permute is free here and
+        keeps a B-row gather off the device."""
         d = {k: getattr(self, k) for k in (
             "f_atoms", "f_bonds", "w_atoms", "w_bonds",
             "b2a", "b2dst", "b2revb", "a2mol", "degree_of_polym", "mol_mask")}
         if sorted_aux:
-            from ..ops.sorted_aux import build_sorted_aux
-            aux = build_sorted_aux(self.b2dst, self.b2revb, self.w_bonds,
-                                   num_atoms=self.f_atoms.shape[0])
-            d["sorted_aux"] = aux._asdict()
-            d["f_bonds"] = self.f_bonds[aux.perm]
+            from ..ops.sorted_aux import sorted_batch
+            return sorted_batch(d)
         return d
 
 

@@ -11,7 +11,9 @@ MPNEncoder (reference mpn.py:14-173):
 * atom readout: weighted incoming sum, concat with f_atoms, W_o, act
   (mpn.py:126-134)
 * molecule readout: stoichiometry-weighted aggregation scaled by
-  1+log10(Xn) (mpn.py:145-171)
+  1+log10(Xn) (mpn.py:145-171); with ``"sorted_aux"``
+  :func:`~..ops.band_mpnn.molecule_readout_sorted` over the batch's
+  molecule CSR, else the segment sums of ops/segment.py
 
 With ``atom_messages`` the messages live on atoms (reference
 mpn.py:93-108, the JAX package's encoder.py:121-187): ``inputs =
@@ -26,9 +28,10 @@ JAX package's deliberate departure from the reference, which indexes the
 bond weights by neighbour atom ids (docs/parity.md). With ``"sorted_aux"``
 the neighbour sum and the readout are :func:`~..ops.band_mpnn.
 atom_neighbor_sum_sorted` and :func:`~..ops.band_mpnn.src_readout_sorted`
-(one kernel, FP32 sums at either compute dtype); without it, segment sums
-over ``b2a`` / ``b2dst``. ``f_sum`` is a segment sum on both branches, as
-in the JAX package.
+(one kernel, FP32 sums at either compute dtype), and ``f_sum`` is
+:func:`~..ops.band_mpnn.atom_readout` with unit weights over the
+dst-sorted bond features; without it, segment sums over ``b2a`` /
+``b2dst``.
 
 For bond messages there are two branches, chosen by the batch:
 
@@ -101,6 +104,7 @@ from ..ops.band_mpnn import (
     band_rev_layer,
     check_precision,
     fused_layer_fits,
+    molecule_readout_sorted,
     permute_rows,
     src_readout_sorted,
 )
@@ -207,6 +211,12 @@ class MPNEncoder(nn.Module):
             atom_hiddens = drop(linear(
                 self.W_d, torch.cat([atom_hiddens, atom_descriptors], 1),
                 bf16))
+        aux = batch.get("sorted_aux")
+        if aux is not None:
+            return molecule_readout_sorted(
+                atom_hiddens, batch["w_atoms"], batch["a2mol"], aux,
+                batch["degree_of_polym"], aggregation=cfg.aggregation,
+                aggregation_norm=cfg.aggregation_norm)
         return molecule_readout(atom_hiddens, batch["w_atoms"],
                                 batch["a2mol"],
                                 batch["degree_of_polym"].shape[0],
@@ -290,9 +300,13 @@ class MPNEncoder(nn.Module):
         # the bond features without the source atom's (reference
         # featurization.py:838-843)
         f_bonds = batch["f_bonds"][:, -cfg.bond_fdim:]
-        # f_bonds arrive dst-sorted with the aux
-        dst = batch["b2dst"] if aux is None else aux["dst_sorted"]
-        f_sum = segment_sum(f_bonds, dst, num_atoms)
+        if aux is None:
+            f_sum = segment_sum(f_bonds, batch["b2dst"], num_atoms)
+        else:
+            # f_bonds arrive dst-sorted with the aux
+            f_sum = atom_readout_sorted(
+                f_bonds.contiguous(), torch.ones_like(aux["w_sorted"]),
+                aux["rowptr"])
         w_h = self.W_h.weight
         const = dense(f_sum, w_h[:, H:], self.W_h.bias, bf16)
         inputs = linear(self.W_i, batch["f_atoms"], bf16)
@@ -312,7 +326,8 @@ class MPNEncoder(nn.Module):
 
 
 # index arrays the kernels read as int32; the rest index with int64
-_KERNEL_INDEX_KEYS = ("src_sorted", "srev", "rowptr")
+_KERNEL_INDEX_KEYS = ("src_sorted", "srev", "rowptr", "mol_idx",
+                      "mol_rowptr")
 
 
 def batch_to_tensors(arrays: Dict, device) -> Dict:

@@ -33,8 +33,16 @@
   ``h[src_sorted]`` with ``_atom_band_kernel``), which never writes the
   gathered (B, H) rows. Differentiable in ``h``, each VJP on the same
   kernel. :func:`csr_gather_sum` is that entry over any row table, forward
-  only: the edge-partitioned encoder's gather VJP (bond rows by ``srev``)
-  and molecule readout (parallel/partition.py).
+  only: the edge-partitioned encoder's gather VJP (bond rows by ``srev``,
+  parallel/partition.py) and the molecule readout.
+* :func:`molecule_readout_sorted`: the stoichiometry-weighted molecule
+  readout, ``sum_{r in mol m} w[r] h[r]`` on the weighted gather entry
+  over the molecule CSR of ops/sorted_aux.py (``build_molecule_csr``),
+  then the aggregation (:func:`aggregate_molecules`). Its VJP is the row
+  gather ``w[r] g[a2mol r]``. Every encoder that has the batch's sorted
+  layout reads out through it, so no float sum of the port's message
+  passing is an atomic add: each runs in a fixed order, and two runs on
+  the card agree bit for bit.
 
 * :func:`band_message_step_sorted`, :func:`band_matmul_step_sorted` and
   :func:`band_matmul_act_step_sorted`: the JAX package's public ops of the
@@ -981,6 +989,72 @@ def csr_gather_sum(h: torch.Tensor, idx: torch.Tensor,
     wrapper = atom_neighbor_sum_sorted if w is None else src_readout_sorted
     return _atom_gather_forward(wrapper, h.contiguous(), w, idx, rowptr,
                                 rows=h.shape[0])
+
+
+class _MolReadoutFn(torch.autograd.Function):
+    """``out[m] = sum_{r in run(m)} w[r] h[r]`` over a molecule CSR
+    (``mol_idx``, ``mol_rowptr``) on :func:`csr_gather_sum`'s weighted
+    entry, the weights read from ``w`` (A,) at call time; the VJP is the
+    row gather ``w[r] g[a2mol r]``, which gives 0 to every row of weight 0
+    and so to every row outside the CSR."""
+
+    @staticmethod
+    def forward(ctx, h, w, a2mol, idx, rowptr):
+        ctx.save_for_backward(w, a2mol)
+        return csr_gather_sum(h, idx, w[idx.long()].contiguous(), rowptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, a2mol = ctx.saved_tensors
+        return w[:, None] * g[a2mol.long()], None, None, None, None
+
+
+def molecule_sum(h: torch.Tensor, w: torch.Tensor, a2mol: torch.Tensor,
+                 idx: torch.Tensor, rowptr: torch.Tensor) -> torch.Tensor:
+    """The weighted atom sum of each molecule, ``(A, H) -> (M, H)``, in the
+    CSR's row order (:class:`_MolReadoutFn`). h (A, H) f32; w (A,) f32;
+    a2mol (A,) int; idx int32 rows of ``h``; rowptr (M + 1,) int32."""
+    return _MolReadoutFn.apply(h, w, a2mol, idx, rowptr)
+
+
+def aggregate_molecules(wsum: torch.Tensor, denom: torch.Tensor,
+                        degree_of_polym: torch.Tensor,
+                        aggregation: str = "mean",
+                        aggregation_norm: float = 100.0) -> torch.Tensor:
+    """The readout's aggregation of the weighted sums ``wsum`` (M, H)
+    (reference mpn.py:145-171): ``mean`` divides by the weight sums
+    ``denom`` (M,) (a molecule with none reads 0), ``sum`` keeps them,
+    ``norm`` divides by ``aggregation_norm``; then each row is scaled by
+    the degree of polymerization, ``1 + log10(Xn)``."""
+    if aggregation == "mean":
+        out = wsum / torch.clamp(denom, min=1e-12)[:, None]
+        out = torch.where(denom[:, None] > 0, out, torch.zeros_like(out))
+    elif aggregation == "sum":
+        out = wsum
+    elif aggregation == "norm":
+        out = wsum / aggregation_norm
+    else:
+        raise ValueError(f"unknown aggregation {aggregation!r}")
+    return out * degree_of_polym[:, None]
+
+
+def molecule_readout_sorted(h: torch.Tensor, w: torch.Tensor,
+                            a2mol: torch.Tensor,
+                            aux: Dict[str, torch.Tensor],
+                            degree_of_polym: torch.Tensor,
+                            aggregation: str = "mean",
+                            aggregation_norm: float = 100.0) -> torch.Tensor:
+    """The molecule readout of ``ops/segment.py`` ``molecule_readout``
+    with every sum in a fixed order: :func:`molecule_sum` over the
+    batch's molecule CSR (``aux``'s ``mol_idx`` and ``mol_rowptr``), the
+    ``mean`` denominator ``aux["mol_denom"]`` summed on the host in the
+    same order, then :func:`aggregate_molecules`. On CPU tensors the sum
+    is its plain version, ``src_readout_plain``; on CUDA tensors one
+    launch of the gather entry, counted in ``src_readout_sorted.launches``
+    (sub-row 3b)."""
+    wsum = molecule_sum(h, w, a2mol, aux["mol_idx"], aux["mol_rowptr"])
+    return aggregate_molecules(wsum, aux["mol_denom"], degree_of_polym,
+                               aggregation, aggregation_norm)
 
 
 WRAPPERS = (band_rev_layer, band_rev_bwd, atom_readout, band_agg, band_bwd,

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .band_mpnn import aggregate_molecules
+
 
 def weighted_segment_sum(values: torch.Tensor, weights: torch.Tensor,
                          segment_ids: torch.Tensor,
@@ -62,16 +64,10 @@ def molecule_readout(atom_hiddens: torch.Tensor, w_atoms: torch.Tensor,
     norm: sum(w*h) / aggregation_norm
     then scaled by degree_of_polym = 1 + log10(Xn). Molecules with zero
     atoms get a zero vector (reference cached_zero_vector, mpn.py:148-149).
+    The encoder's branch without the sorted layout; with it, the readout
+    is ops/band_mpnn.py ``molecule_readout_sorted``.
     """
     wsum = weighted_segment_sum(atom_hiddens, w_atoms, a2mol, num_mols)
-    if aggregation == "mean":
-        denom = segment_sum(w_atoms, a2mol, num_mols)
-        out = wsum / torch.clamp(denom, min=1e-12)[:, None]
-        out = torch.where(denom[:, None] > 0, out, torch.zeros_like(out))
-    elif aggregation == "sum":
-        out = wsum
-    elif aggregation == "norm":
-        out = wsum / aggregation_norm
-    else:
-        raise ValueError(f"unknown aggregation {aggregation!r}")
-    return out * degree_of_polym[:, None]
+    denom = segment_sum(w_atoms, a2mol, num_mols)
+    return aggregate_molecules(wsum, denom, degree_of_polym, aggregation,
+                               aggregation_norm)

@@ -17,6 +17,10 @@ Invariants (as in the JAX package):
   (a true permutation) over all ``B`` slots;
 * ``f_bonds`` is permuted into dst-sorted order on the host
   (:meth:`GraphBatch.arrays`).
+
+:func:`build_molecule_csr` is the same layout one level up: the atom rows
+of each molecule as one CSR run, which the molecule readout sums in row
+order (``ops/band_mpnn.py`` :func:`molecule_readout_sorted`).
 """
 
 from __future__ import annotations
@@ -76,3 +80,55 @@ def build_sorted_aux(b2dst: np.ndarray, b2revb: np.ndarray,
     rowptr = np.zeros(A + 1, np.int32)
     np.cumsum(counts, out=rowptr[1:])
     return SortedBondAux(perm, srev, src_sorted, dst_sorted, w_sorted, rowptr)
+
+
+def build_molecule_csr(a2mol: np.ndarray, w_atoms: np.ndarray,
+                       num_mols: int,
+                       rows: Optional[np.ndarray] = None) -> dict:
+    """``rows`` (by default the batch's real atoms) grouped by molecule in
+    row order: ``mol_idx`` (int32, one entry per
+    row of ``a2mol``, so that every batch of an envelope has one shape:
+    the grouped rows, then 0 on entries that lie in no run),
+    ``mol_rowptr`` (``num_mols + 1`` int32 offsets: molecule m's atoms are
+    ``mol_idx[mol_rowptr[m]:mol_rowptr[m + 1]]``) and ``mol_denom``, each
+    molecule's float32 weight sum added in that order (the ``mean``
+    aggregation's denominator).
+
+    Atoms are packed from row 1 in molecule order, and the tail padding
+    rows (molecule 0, weight 0) follow the last of them: so the real atoms
+    are rows 1 up to the last row of a molecule other than 0 or of a
+    weight other than 0. (A zero-weight atom of molecule 0 that ends a
+    batch with no other atom is left out; it adds exactly 0 to every
+    sum.)"""
+    a2mol = np.asarray(a2mol)
+    w = np.asarray(w_atoms, np.float32)
+    if rows is None:
+        last = np.nonzero((a2mol[1:] != 0) | (w[1:] != 0))[0]
+        rows = np.arange(1, 2 + last[-1]) if last.size else \
+            np.zeros(0, np.int64)
+    rows = rows[np.argsort(a2mol[rows], kind="stable")]
+    mols = a2mol[rows]
+    if mols.size and int(mols.max()) >= num_mols:
+        raise ValueError(f"atom of molecule {int(mols.max())} outside the "
+                         f"{num_mols}-molecule envelope")
+    rowptr = np.zeros(num_mols + 1, np.int32)
+    np.cumsum(np.bincount(mols, minlength=num_mols), out=rowptr[1:])
+    denom = np.zeros(num_mols, np.float32)
+    np.add.at(denom, mols, w[rows])
+    idx = np.zeros(a2mol.shape[0], np.int32)
+    idx[:rows.shape[0]] = rows
+    return {"mol_idx": idx, "mol_rowptr": rowptr, "mol_denom": denom}
+
+
+def sorted_batch(arrays: dict) -> dict:
+    """One batch's natural-order arrays (``GraphBatch.arrays()``) in the
+    layout the encoder's kernel branch reads: under ``"sorted_aux"`` the
+    arrays of :func:`build_sorted_aux` and :func:`build_molecule_csr`,
+    and ``f_bonds`` permuted into dst-sorted order."""
+    aux = build_sorted_aux(arrays["b2dst"], arrays["b2revb"],
+                           arrays["w_bonds"],
+                           num_atoms=arrays["f_atoms"].shape[0])
+    mol = build_molecule_csr(arrays["a2mol"], arrays["w_atoms"],
+                             arrays["degree_of_polym"].shape[0])
+    return dict(arrays, sorted_aux=dict(aux._asdict(), **mol),
+                f_bonds=arrays["f_bonds"][aux.perm])

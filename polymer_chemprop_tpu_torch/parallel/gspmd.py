@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..models.encoder import batch_to_tensors
-from ..ops.sorted_aux import build_sorted_aux
+from ..ops.sorted_aux import build_molecule_csr, build_sorted_aux
 from ..train.step import TrainStep, make_loss_fn
 from .mesh import Mesh, all_gather
 from .partition import _device_of, flat_all_reduce
@@ -78,7 +78,10 @@ def make_gspmd_train_step(model, optimizer, schedule, mesh: Mesh,
                                t["b2revb"].cpu().numpy(),
                                t["w_bonds"].cpu().numpy(),
                                num_atoms=t["f_atoms"].shape[0])
-        sorted_aux = batch_to_tensors(aux._asdict(), dev)
+        mol_csr = build_molecule_csr(t["a2mol"].cpu().numpy(),
+                                     t["w_atoms"].cpu().numpy(),
+                                     t["degree_of_polym"].shape[0])
+        sorted_aux = batch_to_tensors(dict(aux._asdict(), **mol_csr), dev)
         t["f_bonds"] = t["f_bonds"][sorted_aux["perm"]]
         t["sorted_aux"] = sorted_aux
         as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,

@@ -38,9 +38,12 @@ inside what that kernel does in one pass. The VJP of the gather
 (``csr_gather_sum``) with index ``srev`` and unit weights, never an
 ``index_add_``. ``atom_messages`` runs its neighbour sum and readout on
 that entry too (``atom_neighbor_sum_sorted``, ``src_readout_sorted``), and
-the molecule readout of the owned atoms is the weighted gather entry over
-a per-shard molecule CSR. So on a card the edge-partitioned encoder runs
-no ``index_add_``; on the CPU every kernel op runs its plain version.
+the molecule readout of the owned atoms is the single-device encoder's,
+the weighted gather entry over a per-shard molecule CSR
+(``ops/band_mpnn.py`` ``molecule_sum``, ``ops/sorted_aux.py``
+``build_molecule_csr`` over the owned rows). So on a card the
+edge-partitioned encoder runs no ``index_add_``; on the CPU every kernel
+op runs its plain version.
 
 Collectives carry gradients: a halo combine's backward sends the
 cotangent rows back by the same offsets, and the all-reduce's backward
@@ -64,7 +67,7 @@ import torch
 
 from ..models.nn import dense, get_activation, linear
 from ..ops import band_mpnn as bm
-from ..ops.sorted_aux import build_sorted_aux
+from ..ops.sorted_aux import build_molecule_csr, build_sorted_aux
 from .mesh import Mesh, all_reduce_sum, exchange
 
 
@@ -441,22 +444,6 @@ class _SrcGatherFn(torch.autograd.Function):
                 None, None, None)
 
 
-class _MolReadoutFn(torch.autograd.Function):
-    """``out[m] = sum_{r: a2mol r = m} w[r] h[r]`` on row 3's weighted
-    gather entry over a molecule CSR (:func:`_mol_csr`); the VJP is the
-    row gather ``w[r] g[a2mol r]``."""
-
-    @staticmethod
-    def forward(ctx, h, w, a2mol, idx, w_sorted, rowptr):
-        ctx.save_for_backward(w, a2mol)
-        return bm.csr_gather_sum(h, idx, w_sorted, rowptr)
-
-    @staticmethod
-    def backward(ctx, g):
-        w, a2mol = ctx.saved_tensors
-        return w[:, None] * g[a2mol], None, None, None, None, None
-
-
 # ---------------------------------------------------------------------------
 # per-rank preparation
 # ---------------------------------------------------------------------------
@@ -464,22 +451,6 @@ class _MolReadoutFn(torch.autograd.Function):
 _INT32_KEYS = ("src_sorted", "srev", "rowptr", "mol_idx", "mol_rowptr")
 _SCALAR_KEYS = ("off_prev", "off_next", "ext", "ext_prev", "ext_next",
                 "win_start", "num_atoms")
-
-
-def _mol_csr(a2mol: np.ndarray, w: np.ndarray, num_mols: int) -> Dict:
-    """The rows of weight != 0 grouped by molecule in row order: ``mol_idx``
-    (rows), ``mol_w``, ``mol_rowptr`` (num_mols + 1), and ``mol_denom``,
-    the float32 weight sum of each molecule."""
-    rows = np.nonzero(w != 0)[0]
-    rows = rows[np.argsort(a2mol[rows], kind="stable")]
-    counts = np.bincount(a2mol[rows], minlength=num_mols)[:num_mols]
-    rowptr = np.zeros(num_mols + 1, np.int32)
-    np.cumsum(counts, out=rowptr[1:])
-    denom = np.zeros(num_mols, np.float32)
-    np.add.at(denom, a2mol[rows], w[rows].astype(np.float32))
-    return {"mol_idx": rows.astype(np.int32),
-            "mol_w": w[rows].astype(np.float32), "mol_rowptr": rowptr,
-            "mol_denom": denom}
 
 
 def _tensors(d: Dict, device) -> Dict:
@@ -506,8 +477,9 @@ def _prepare_halo(sh: Dict, rep: Dict, device) -> Dict:
     d = {k: v for k, v in sh.items()
          if k not in ("f_bonds", "b2a_local", "b2dst_local",
                       "b2revb_local", "bond_mask")}
-    d.update(_mol_csr(sh["a2mol_win"], own_w,
-                      rep["degree_of_polym"].shape[0]))
+    d.update(build_molecule_csr(sh["a2mol_win"], own_w,
+                                rep["degree_of_polym"].shape[0],
+                                rows=np.nonzero(own_w != 0)[0]))
     d["own_w"] = own_w.astype(np.float32)
     d["degree_of_polym"] = rep["degree_of_polym"]
     return _tensors(d, device)
@@ -653,23 +625,17 @@ def _molecule_readout(atom_hiddens, t, cfg, group) -> torch.Tensor:
     """The owned atoms' weighted molecule sums, all-reduced over ``group``
     together with the weight sums, then the aggregation and the
     degree-of-polymerization scale (JAX partition.py:843-858)."""
-    wsum = _MolReadoutFn.apply(atom_hiddens, t["own_w"], t["a2mol_win"],
-                               t["mol_idx"], t["mol_w"], t["mol_rowptr"])
+    wsum = bm.molecule_sum(atom_hiddens, t["own_w"], t["a2mol_win"],
+                           t["mol_idx"], t["mol_rowptr"])
     return _aggregate(wsum, t["mol_denom"], t["degree_of_polym"], cfg,
                       group)
 
 
 def _aggregate(wsum, denom, degree_of_polym, cfg, group) -> torch.Tensor:
     packed = _psum(torch.cat([wsum, denom[:, None]], 1), group)
-    wsum, denom = packed[:, :-1], packed[:, -1].detach()
-    if cfg.aggregation == "mean":
-        out = wsum / torch.clamp(denom, min=1e-12)[:, None]
-        out = torch.where(denom[:, None] > 0, out, torch.zeros_like(out))
-    elif cfg.aggregation == "sum":
-        out = wsum
-    else:
-        out = wsum / cfg.aggregation_norm
-    return out * degree_of_polym[:, None]
+    return bm.aggregate_molecules(packed[:, :-1], packed[:, -1].detach(),
+                                  degree_of_polym, cfg.aggregation,
+                                  cfg.aggregation_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -698,7 +664,9 @@ def make_edge_parallel_forward(cfg, mesh: Mesh, axis: str = "ep"):
                       "f_atoms": replicated["f_atoms"],
                       "w_atoms": w_atoms, "a2mol": replicated["a2mol"],
                       "degree_of_polym": replicated["degree_of_polym"],
-                      **_mol_csr(replicated["a2mol"], w_atoms, M)}, dev)
+                      **build_molecule_csr(replicated["a2mol"], w_atoms, M,
+                                           rows=np.nonzero(w_atoms != 0)[0])},
+                     dev)
         group = mesh.group(axis)
         rowptr, dst, srev = t["rowptr"], t["dst_sorted"], t["srev"]
         inputs = linear(enc.W_i, t["f_bonds_sorted"])
@@ -714,8 +682,8 @@ def make_edge_parallel_forward(cfg, mesh: Mesh, axis: str = "ep"):
         atom_hiddens = act(linear(enc.W_o,
                                   torch.cat([t["f_atoms"], a_message], 1)))
         # replicated atoms: every rank reads the whole molecule readout
-        wsum = _MolReadoutFn.apply(atom_hiddens, t["w_atoms"], t["a2mol"],
-                                   t["mol_idx"], t["mol_w"], t["mol_rowptr"])
+        wsum = bm.molecule_sum(atom_hiddens, t["w_atoms"], t["a2mol"],
+                               t["mol_idx"], t["mol_rowptr"])
         return _aggregate(wsum, t["mol_denom"], t["degree_of_polym"], cfg,
                           None)
 

@@ -1,4 +1,5 @@
-"""The bench batch the probes and chip_smoke.py's kernel phase run on.
+"""The bench batch the probes and chip_smoke.py's kernel phase run on, and
+the synthetic copolymers they serve and train on.
 
 The port's copy of the JAX package's ``bench._load_batch`` (bench.py:56-80):
 the first ``n_molecules`` of tests/data/regression.csv, repeated as often as
@@ -49,3 +50,28 @@ def bench_aux(gb: GraphBatch,
     w = gb.w_bonds if w_bonds is None else w_bonds
     return build_sorted_aux(gb.b2dst, gb.b2revb, w,
                             num_atoms=gb.f_atoms.shape[0])
+
+
+def copolymer_csv(path, n: int = 200, seed: int = 0,
+                  with_target: bool = False) -> None:
+    """``n`` synthetic copolymer ensemble strings as in
+    tests/test_integration.py:71-82 (two of five monomers, weights 0.25 /
+    0.5 / 0.75, Xn from 2 to 199) into a CSV at ``path``; ``with_target``
+    adds a column that depends on composition and chain length, to train
+    on."""
+    rng = np.random.default_rng(seed)
+    mons = ["[*:1]CC[*:2]", "[*:1]c1ccc([*:2])cc1", "[*:1]CO[*:2]",
+            "[*:1]C(C)C[*:2]", "[*:1]c1ccc([*:2])cc1C"]
+    rows = ["smiles,target" if with_target else "smiles"]
+    for _ in range(n):
+        i1, i2 = rng.choice(len(mons), 2, replace=False)
+        m1 = mons[i1]
+        m2 = mons[i2].replace("[*:1]", "[*:3]").replace("[*:2]", "[*:4]")
+        w = rng.choice([0.25, 0.5, 0.75])
+        xn = rng.integers(2, 200)
+        row = f'"{m1}.{m2}|{w}|{1 - w}|<1-3:0.5:0.5<2-4:0.5:0.5~{xn}"'
+        if with_target:
+            row += f",{w * i1 + (1 - w) * i2 + 0.5 * np.log10(xn):.4f}"
+        rows.append(row)
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")

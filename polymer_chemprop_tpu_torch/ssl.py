@@ -53,7 +53,7 @@ from .models.convert import ssl_params_to_jax
 from .models.encoder import EncoderConfig, MPNEncoder, batch_to_tensors
 from .models.init import init_model
 from .models.nn import get_activation, linear
-from .ops.segment import weighted_segment_sum
+from .ops.band_mpnn import molecule_readout_sorted
 from .train.predict import resolve_device
 from .train.scheduler import build_optimizer, constant_schedule
 from .train.step import global_norm
@@ -134,10 +134,10 @@ class SSLModel(nn.Module):
         batch's order, atom hiddens, and the weighted atom sum scaled by
         the degree of polymerization."""
         message, atom_hiddens = self.encoder.encode_parts(batch)
-        wsum = weighted_segment_sum(atom_hiddens, batch["w_atoms"],
-                                    batch["a2mol"],
-                                    batch["degree_of_polym"].shape[0])
-        return message, atom_hiddens, wsum * batch["degree_of_polym"][:, None]
+        mol_emb = molecule_readout_sorted(
+            atom_hiddens, batch["w_atoms"], batch["a2mol"],
+            batch["sorted_aux"], batch["degree_of_polym"], aggregation="sum")
+        return message, atom_hiddens, mol_emb
 
 
 def init_ssl_model(enc_cfg: EncoderConfig, seed: int) -> SSLModel:

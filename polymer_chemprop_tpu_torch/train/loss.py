@@ -27,10 +27,17 @@ def mse(preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def cross_entropy_multiclass(preds: torch.Tensor,
                              targets: torch.Tensor) -> torch.Tensor:
     """preds (M, tasks, classes) logits; targets (M, tasks) class ids.
-    Returns (M, tasks) elementwise CE (CrossEntropyLoss reduction=none)."""
+    Returns (M, tasks) elementwise CE (CrossEntropyLoss reduction=none).
+
+    The target's log-probability is picked by a comparison with the class
+    ids, not by ``gather``: the VJP of ``gather`` adds into its output
+    (on CUDA with atomics, in no fixed order), that of ``where`` writes.
+    The other classes add exact zeros, and ``where`` (unlike a product
+    with a one-hot) leaves no ``0 * -inf``."""
     logp = torch.log_softmax(preds, dim=-1)
-    t = targets.long()
-    return -torch.gather(logp, -1, t[..., None])[..., 0]
+    classes = torch.arange(preds.shape[-1], device=preds.device)
+    pick = targets.long()[..., None] == classes
+    return -torch.where(pick, logp, torch.zeros_like(logp)).sum(-1)
 
 
 def sid_loss(preds: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,

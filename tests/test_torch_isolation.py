@@ -53,7 +53,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "parallel.gspmd", "sklearn_train", "sklearn_predict",
                  "baselines", "baselines.pickles", "baselines.tree",
                  "baselines.forest", "baselines.svm", "baselines.linear",
-                 "goldens", "eaip", "polymer_goldens"):
+                 "goldens", "eaip", "polymer_goldens",
+                 "probes.determinism_probe"):
         assert f"polymer_chemprop_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

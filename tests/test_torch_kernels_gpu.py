@@ -1042,8 +1042,9 @@ def test_model_with_features_and_descriptors_card_against_cpu(
     extra bond features, forward and gradients, on the card against the
     same model on the CPU (its kernels' plain versions), at "highest":
     outputs rtol 1e-4, gradients 1e-4 of each gradient's largest entry.
-    The kernels of the path must launch: rows 1-3, or with
-    ``atom_messages`` the gather entry."""
+    The kernels of the path must launch: rows 1-3 and the gather entry
+    (the molecule readout), or with ``atom_messages`` the gather entry and
+    row 3 (``f_sum``)."""
     from polymer_chemprop_tpu_torch.features import MolGraph, batch_graphs
     from polymer_chemprop_tpu_torch.chem import parse_smiles
     from polymer_chemprop_tpu_torch.models.encoder import (EncoderConfig,
@@ -1094,9 +1095,12 @@ def test_model_with_features_and_descriptors_card_against_cpu(
         outs.append((preds.cpu(), loss.item(), grads, counts))
     (want, want_loss, want_grads, cpu_counts), (got, loss, grads, counts) = outs
     assert not any(cpu_counts.values())
-    launched = ({"atom_neighbor_sum_sorted", "src_readout_sorted"}
-                if atom_messages else
-                {"band_rev_layer", "band_rev_bwd", "atom_readout"})
+    # the molecule readout on src_readout_sorted's entry; atom_messages'
+    # f_sum on atom_readout
+    launched = ({"atom_neighbor_sum_sorted", "src_readout_sorted",
+                 "atom_readout"} if atom_messages else
+                {"band_rev_layer", "band_rev_bwd", "atom_readout",
+                 "src_readout_sorted"})
     assert {k for k, v in counts.items() if v} == launched, counts
     assert "encoders.0.W_d.weight" in grads
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
@@ -1113,7 +1117,8 @@ def test_ssl_step_card_against_cpu(cuda, with_graph):
     """One masked SSL step (enhanced mode, gate open) on the card against
     the CPU, on the same draws and weights: loss and gradient norm within
     rtol 1e-4, each gradient within 1e-4 of its largest entry; rows 1-3
-    launched, the layer on its FP32 entry."""
+    and the molecule readout's gather entry launched, the layer on its
+    FP32 entry."""
     from polymer_chemprop_tpu_torch import ssl
     from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
     fcfg = FeaturizationConfig(polymer=True)
@@ -1143,7 +1148,8 @@ def test_ssl_step_card_against_cpu(cuda, with_graph):
         (loss, gnorm, got, counts, tc) = outs
     assert not any(cpu_counts.values())
     assert {k for k, v in counts.items() if v} == \
-        {"band_rev_layer", "band_rev_bwd", "atom_readout"}, counts
+        {"band_rev_layer", "band_rev_bwd", "atom_readout",
+         "src_readout_sorted"}, counts
     assert not any(tc.values()), tc
     np.testing.assert_allclose([loss, gnorm], [want_loss, want_gnorm],
                                rtol=1e-4)

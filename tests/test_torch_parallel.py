@@ -65,7 +65,7 @@ from polymer_chemprop_tpu_torch.models.convert import (load_jax_params,
                                                       params_to_jax)
 from polymer_chemprop_tpu_torch.models.encoder import EncoderConfig
 from polymer_chemprop_tpu_torch.models.model import ModelConfig, MoleculeModel
-from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
+from polymer_chemprop_tpu_torch.ops.sorted_aux import sorted_batch
 from polymer_chemprop_tpu_torch.train.scheduler import (build_optimizer,
                                                        constant_schedule)
 
@@ -94,12 +94,7 @@ def grads(model):
 
 
 def with_aux(arrays):
-    aux = build_sorted_aux(arrays["b2dst"], arrays["b2revb"],
-                           arrays["w_bonds"],
-                           num_atoms=arrays["f_atoms"].shape[0])
-    d = dict(arrays, sorted_aux=aux._asdict())
-    d["f_bonds"] = arrays["f_bonds"][aux.perm]
-    return d
+    return sorted_batch(arrays)
 
 
 def batch(arrays, targets, aux=True):
@@ -458,7 +453,7 @@ def test_multihost_two_processes_match_one_bit_for_bit(run):
     from polymer_chemprop_tpu_torch.models.encoder import EncoderConfig
     from polymer_chemprop_tpu_torch.models.model import (ModelConfig,
                                                         MoleculeModel)
-    from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
+    from polymer_chemprop_tpu_torch.ops.sorted_aux import sorted_batch
     from polymer_chemprop_tpu_torch.train.scheduler import (
         build_optimizer, constant_schedule)
     inp, launches = run
@@ -473,12 +468,8 @@ def test_multihost_two_processes_match_one_bit_for_bit(run):
     micro = []
     for p in range(2):
         arrays = inp["mh_arrays"][p]
-        aux = build_sorted_aux(arrays["b2dst"], arrays["b2revb"],
-                               arrays["w_bonds"], num_atoms=32)
-        g = dict(arrays, sorted_aux=aux._asdict(),
-                 f_bonds=arrays["f_bonds"][aux.perm])
-        micro.append(_batch(g, [float(i) for i in
-                                inp["mh_order"][4 * p:4 * p + 4]]))
+        micro.append(_batch(sorted_batch(arrays), [
+            float(i) for i in inp["mh_order"][4 * p:4 * p + 4]]))
     losses = []
     for _ in range(2):
         loss, _ = step(tpar.shard_batch(tpar.stack_device_batches(micro),

@@ -50,7 +50,7 @@ from polymer_chemprop_tpu_torch.models.convert import (
     ssl_params_to_jax,
 )
 from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
-from polymer_chemprop_tpu_torch.ops.sorted_aux import build_sorted_aux
+from polymer_chemprop_tpu_torch.ops.sorted_aux import sorted_batch
 from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
 from polymer_chemprop_tpu_torch.utils.checkpoint import load_checkpoint
 from test_torch_threads import torch_threads  # noqa: F401
@@ -90,11 +90,7 @@ def batch(polymer_csv):
     b = next(iter(loader))
     arrays = batch_pytree(b)["graphs"][0]
     # the port's layout: the dst-sorted aux, f_bonds permuted
-    aux = build_sorted_aux(arrays["b2dst"], arrays["b2revb"],
-                           arrays["w_bonds"],
-                           num_atoms=arrays["f_atoms"].shape[0])
-    port = dict(arrays, sorted_aux=aux._asdict(),
-                f_bonds=arrays["f_bonds"][aux.perm])
+    port = sorted_batch(arrays)
     labels = np.zeros(b.mol_mask.shape[0], np.float32)
     labels[:b.size] = jax_ssl.molecular_weight_label(data, fcfg)[:b.size]
     return fcfg, arrays, batch_to_tensors(port, "cpu"), labels
