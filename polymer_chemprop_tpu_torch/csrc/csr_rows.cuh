@@ -21,7 +21,10 @@
 // kernels' z bit for bit, and with unit weights the VJPs' dm equals the
 // forward readout less the row bit for bit. x_c is row rows(c) of the
 // input: row c itself (Direct) or row idx[c] (Gather; band_rev_bwd.cu reads
-// g[srev c]).
+// g[srev c]); the weight of run element c is likewise w[wrows(c)], w[c]
+// unless a run_sum caller passes another index map (atom_readout.cu's
+// gather entry reads w[srev c] in 3b's VJP, and w[idx c] for molecules,
+// with the row's own index: SameAsRows).
 //
 // What bounds them is HBM, and the design keeps many bytes in flight:
 //
@@ -49,6 +52,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace csr_rows {
 
@@ -71,6 +75,11 @@ struct Gather {
     return __ldg(idx + c);
   }
 };
+
+// the weights through the rows' own map, w[rows(c)], read with the row
+// index already loaded (a second read of idx[c] for them measured slower
+// on the molecule readout)
+struct SameAsRows {};
 
 // the 16-byte path: every row of a width-H matrix at p and q starts on a
 // 16-byte boundary
@@ -98,13 +107,21 @@ __device__ __forceinline__ void store(float* p, const float (&x)[VEC]) {
     *p = x[0];
 }
 
-// w[c] for c in [base, min(base + UNROLL, c1))
+// w[wrows(c)] for c in [base, min(base + UNROLL, c1)) (Direct: addressed
+// from w + base, one pointer for the group)
+template <class WRows = Direct>
 __device__ __forceinline__ void load_weights(const float* __restrict__ w,
                                              int base, int c1,
-                                             float (&wc)[UNROLL]) {
+                                             float (&wc)[UNROLL],
+                                             const WRows& wrows = WRows()) {
 #pragma unroll
   for (int r = 0; r < UNROLL; ++r)
-    if (base + r < c1) wc[r] = __ldg(w + base + r);
+    if (base + r < c1) {
+      if constexpr (std::is_same<WRows, Direct>::value)
+        wc[r] = __ldg(w + base + r);
+      else
+        wc[r] = __ldg(w + wrows(base + r));
+    }
 }
 
 // input rows rows(c) for c in [base, min(base + UNROLL, c1)) at column
@@ -125,21 +142,37 @@ __device__ __forceinline__ void load_group(const float* __restrict__ m,
 }
 
 // acc = the run's sum over c in [c0, c1) at columns [col, col + VEC),
-// weighted as WT says. On return x and wc hold the rows and weights of
-// the last group, which is the whole run when c1 - c0 <= UNROLL.
-template <int VEC, Weights WT = kInSum, class Rows = Direct>
+// weighted as WT says (the weight of c is w[wrows(c)], or w[rows(c)] with
+// SameAsRows). On return x and wc hold the rows and weights of the last
+// group, which is the whole run when c1 - c0 <= UNROLL.
+template <int VEC, Weights WT = kInSum, class Rows = Direct,
+          class WRows = Direct>
 __device__ __forceinline__ void run_sum(const float* __restrict__ m,
                                         const float* __restrict__ w,
                                         size_t H, size_t col, int c0, int c1,
                                         float (&acc)[VEC],
                                         float (&x)[UNROLL][VEC],
                                         float (&wc)[UNROLL],
-                                        const Rows& rows = Rows()) {
+                                        const Rows& rows = Rows(),
+                                        const WRows& wrows = WRows()) {
 #pragma unroll
   for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
   for (int base = c0; base < c1; base += UNROLL) {
-    if constexpr (WT != kUnit) load_weights(w, base, c1, wc);
-    load_group<VEC>(m, H, col, base, c1, x, rows);
+    if constexpr (std::is_same<WRows, SameAsRows>::value) {
+      int row[UNROLL];
+#pragma unroll
+      for (int r = 0; r < UNROLL; ++r)
+        if (base + r < c1) row[r] = rows(base + r);
+#pragma unroll
+      for (int r = 0; r < UNROLL; ++r)
+        if (base + r < c1) {
+          load<VEC>(m + static_cast<size_t>(row[r]) * H + col, x[r]);
+          wc[r] = __ldg(w + row[r]);
+        }
+    } else {
+      if constexpr (WT != kUnit) load_weights(w, base, c1, wc, wrows);
+      load_group<VEC>(m, H, col, base, c1, x, rows);
+    }
 #pragma unroll
     for (int r = 0; r < UNROLL; ++r)
       if (base + r < c1) {

@@ -60,6 +60,16 @@ class DeviceBatch:
                            np.zeros_like(self.data_weights), self.size,
                            self.features, self.atom_descriptors)
 
+    def sorted_layout(self) -> "DeviceBatch":
+        """This natural-order batch with every molecule position in the
+        dst-sorted layout (ops/sorted_aux.py ``sorted_batch``), as a loader
+        with ``sorted_aux=True`` builds it: the encoder then runs its
+        kernel branch, whose sums run in a fixed order."""
+        from ..ops.sorted_aux import sorted_batch
+        return DeviceBatch([sorted_batch(g) for g in self.graph_arrays],
+                           self.targets, self.mask, self.data_weights,
+                           self.size, self.features, self.atom_descriptors)
+
 
 class MoleculeDataLoader:
     """Iterable over DeviceBatches with a stable padding envelope."""

@@ -118,8 +118,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "atom_readout":
         lib.atom_readout_f32.argtypes = [p, p, p, p, i, i, p]
         lib.atom_readout_f32.restype = i
-        lib.atom_gather_readout_f32.argtypes = [p, p, p, p, p, i, i, p]
+        lib.atom_gather_readout_f32.argtypes = [p, p, p, p, p, p, i, i, p]
         lib.atom_gather_readout_f32.restype = i
+        lib.molecule_readout_f32.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                             ctypes.c_float, p]
+        lib.molecule_readout_f32.restype = i
     elif name == "band_agg":
         lib.band_agg_f32.argtypes = [p, p, p, p, i, i, i, p]
         lib.band_agg_f32.restype = i

@@ -32,17 +32,23 @@
   (``atom_gather_readout_f32``; the JAX package composes the gather
   ``h[src_sorted]`` with ``_atom_band_kernel``), which never writes the
   gathered (B, H) rows. Differentiable in ``h``, each VJP on the same
-  kernel. :func:`csr_gather_sum` is that entry over any row table, forward
-  only: the edge-partitioned encoder's gather VJP (bond rows by ``srev``,
-  parallel/partition.py) and the molecule readout.
+  kernel (the readout's reads its weights ``w[srev]`` through the entry's
+  weight index). :func:`csr_gather_sum` is that entry over any row table,
+  forward only: the edge-partitioned encoder's gather VJP (bond rows by
+  ``srev``, parallel/partition.py).
 * :func:`molecule_readout_sorted`: the stoichiometry-weighted molecule
-  readout, ``sum_{r in mol m} w[r] h[r]`` on the weighted gather entry
-  over the molecule CSR of ops/sorted_aux.py (``build_molecule_csr``),
-  then the aggregation (:func:`aggregate_molecules`). Its VJP is the row
-  gather ``w[r] g[a2mol r]``. Every encoder that has the batch's sorted
-  layout reads out through it, so no float sum of the port's message
-  passing is an atomic add: each runs in a fixed order, and two runs on
-  the card agree bit for bit.
+  readout, ``sum_{r in mol m} w[r] h[r]`` over the molecule CSR of
+  ops/sorted_aux.py (``build_molecule_csr``) and the aggregation
+  (:func:`aggregate_molecules`) in one launch of the same source's
+  ``molecule_readout_f32`` (the weights read through the CSR's index,
+  the aggregation on the sum in registers); :func:`molecule_sum` is the
+  sum alone (the edge-partitioned encoder's), the gather entry with its
+  weights read through the CSR's index. Both count their launches in
+  ``molecule_readout_sorted.launches``. The VJP is autograd's
+  through the aggregation, then the row gather ``w[r] g[a2mol r]``.
+  Every encoder that has the batch's sorted layout reads out through it,
+  so no float sum of the port's message passing is an atomic add: each
+  runs in a fixed order, and two runs on the card agree bit for bit.
 
 * :func:`band_message_step_sorted`, :func:`band_matmul_step_sorted` and
   :func:`band_matmul_act_step_sorted`: the JAX package's public ops of the
@@ -86,6 +92,7 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models.nn import get_activation
@@ -249,14 +256,33 @@ def atom_neighbor_sum_plain(h: torch.Tensor, src_sorted: torch.Tensor,
 
 
 def src_readout_plain(h: torch.Tensor, w_sorted: torch.Tensor,
-                      src_sorted: torch.Tensor, rowptr: torch.Tensor
-                      ) -> torch.Tensor:
-    """Plain version of :func:`src_readout_sorted`, with ``index_add_``."""
+                      src_sorted: torch.Tensor, rowptr: torch.Tensor,
+                      widx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`src_readout_sorted`, with ``index_add_``;
+    with ``widx`` the weights are read through it, ``w_sorted[widx]`` (the
+    gather entry's weight index)."""
     A = rowptr.shape[0] - 1
     n = int(rowptr[-1])
+    w = w_sorted[:n] if widx is None else w_sorted[widx[:n].long()]
     out = h.new_zeros((A, h.shape[1]))
     return out.index_add_(0, _csr_rows(rowptr),
-                          h[src_sorted[:n].long()] * w_sorted[:n, None])
+                          h[src_sorted[:n].long()] * w[:, None])
+
+
+def molecule_readout_plain(h: torch.Tensor, w: torch.Tensor,
+                           idx: torch.Tensor, rowptr: torch.Tensor,
+                           denom: Optional[torch.Tensor],
+                           degree_of_polym: Optional[torch.Tensor],
+                           aggregation: Optional[str] = "mean",
+                           aggregation_norm: float = 100.0) -> torch.Tensor:
+    """Plain version of the one-launch molecule readout: the weighted sum
+    over the molecule CSR (``w`` read through ``idx``), then
+    :func:`aggregate_molecules` unless ``aggregation`` is None."""
+    wsum = src_readout_plain(h, w, idx, rowptr, widx=idx)
+    if aggregation is None:
+        return wsum
+    return aggregate_molecules(wsum, denom, degree_of_polym, aggregation,
+                               aggregation_norm)
 
 
 def band_rev_z_plain(m: torch.Tensor, w_sorted: torch.Tensor,
@@ -473,12 +499,14 @@ def _atom_readout_forward(m: torch.Tensor, w_sorted: torch.Tensor,
 
 def _atom_gather_launch(kernel: str, h: torch.Tensor, idx: torch.Tensor,
                         w: Optional[torch.Tensor], rowptr: torch.Tensor,
-                        rows: Optional[int] = None) -> torch.Tensor:
+                        rows: Optional[int] = None,
+                        widx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Checks, allocation and launch of csrc/atom_readout.cu's gather entry
-    ``atom_gather_readout_f32``: ``out[v] = sum_{c in run(v)} w[c]
+    ``atom_gather_readout_f32``: ``out[v] = sum_{c in run(v)} wt(c)
     h[idx[c]]`` for a table ``h`` of ``rows`` rows (the A atoms unless
-    given: :func:`csr_gather_sum` reads bond rows); ``w`` None means unit
-    weights (never read)."""
+    given: :func:`csr_gather_sum` reads bond rows), with ``wt(c)`` 1 when
+    ``w`` is None (never read), ``w[c]``, or ``w[widx[c]]`` when ``widx``
+    is given (``w`` then has any length)."""
     if h.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {h.device}")
     A = rowptr.shape[0] - 1
@@ -487,7 +515,10 @@ def _atom_gather_launch(kernel: str, h: torch.Tensor, idx: torch.Tensor,
     _check("h", h, (A if rows is None else rows, H), torch.float32, dev)
     _check("src_sorted", idx, (B,), torch.int32, dev)
     if w is not None:
-        _check("w", w, (B,), torch.float32, dev)
+        _check("w", w, (B if widx is None else w.shape[0],), torch.float32,
+               dev)
+    if widx is not None:
+        _check("widx", widx, (B,), torch.int32, dev)
     _check("rowptr", rowptr, (A + 1,), torch.int32, dev)
     from ..kernels.build import load
     lib = load("atom_readout")
@@ -496,7 +527,8 @@ def _atom_gather_launch(kernel: str, h: torch.Tensor, idx: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.atom_gather_readout_f32(
             h.data_ptr(), idx.data_ptr(), None if w is None else w.data_ptr(),
-            rowptr.data_ptr(), out.data_ptr(), A, H, stream)
+            None if widx is None else widx.data_ptr(), rowptr.data_ptr(),
+            out.data_ptr(), A, H, stream)
     _raise_on(err, kernel)
     return out
 
@@ -504,17 +536,65 @@ def _atom_gather_launch(kernel: str, h: torch.Tensor, idx: torch.Tensor,
 def _atom_gather_forward(wrapper, h: torch.Tensor,
                          w: Optional[torch.Tensor], src_sorted: torch.Tensor,
                          rowptr: torch.Tensor,
-                         rows: Optional[int] = None) -> torch.Tensor:
+                         rows: Optional[int] = None,
+                         widx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The sum of ``wrapper`` (:func:`atom_neighbor_sum_sorted` with ``w``
-    None, :func:`src_readout_sorted`): its plain version on CPU tensors,
-    else one launch counted in ``wrapper.launches``."""
+    None, :func:`src_readout_sorted`; weights ``w[widx]`` with ``widx``):
+    its plain version on CPU tensors, else one launch counted in
+    ``wrapper.launches``."""
     if h.device.type == "cpu":
         if w is None:
             return atom_neighbor_sum_plain(h, src_sorted, rowptr)
-        return src_readout_plain(h, w, src_sorted, rowptr)
+        return src_readout_plain(h, w, src_sorted, rowptr, widx)
     out = _atom_gather_launch(wrapper.__name__, h, src_sorted, w, rowptr,
-                              rows)
+                              rows, widx)
     wrapper.launches += 1
+    return out
+
+
+# the molecule readout's aggregation ids (csrc/atom_readout.cu Aggregation)
+AGGREGATION_IDS = {"mean": 1, "sum": 2, "norm": 3}
+
+
+def _molecule_readout_launch(h: torch.Tensor, w: torch.Tensor,
+                             idx: torch.Tensor, rowptr: torch.Tensor,
+                             denom: Optional[torch.Tensor],
+                             degree_of_polym: torch.Tensor,
+                             aggregation: str = "mean",
+                             aggregation_norm: float = 100.0
+                             ) -> torch.Tensor:
+    """Checks, allocation and one launch of csrc/atom_readout.cu's
+    ``molecule_readout_f32`` (uncounted): :func:`molecule_readout_plain`
+    on CUDA tensors. h (A, H) f32; w (A,) f32; idx (A,) int32; rowptr
+    (M + 1,) int32; denom (``mean``) and degree_of_polym (M,) f32."""
+    if h.device.type != "cuda":
+        raise ValueError(f"molecule_readout: unsupported device {h.device}")
+    if aggregation not in AGGREGATION_IDS:
+        raise ValueError(f"unknown aggregation {aggregation!r}")
+    A, H = h.shape
+    M = rowptr.shape[0] - 1
+    dev = h.device
+    _check("h", h, (A, H), torch.float32, dev)
+    _check("w", w, (A,), torch.float32, dev)
+    _check("mol_idx", idx, (idx.shape[0],), torch.int32, dev)
+    _check("mol_rowptr", rowptr, (M + 1,), torch.int32, dev)
+    _check("degree_of_polym", degree_of_polym, (M,), torch.float32, dev)
+    if aggregation == "mean":
+        _check("mol_denom", denom, (M,), torch.float32, dev)
+    # torch's CUDA division by a Python scalar multiplies by its float
+    # reciprocal, computed on the host in float
+    inv_norm = float(np.float32(1.0) / np.float32(aggregation_norm))
+    from ..kernels.build import load
+    lib = load("atom_readout")
+    out = h.new_empty((M, H))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.molecule_readout_f32(
+            h.data_ptr(), idx.data_ptr(), w.data_ptr(), rowptr.data_ptr(),
+            denom.data_ptr() if aggregation == "mean" else None,
+            degree_of_polym.data_ptr(), out.data_ptr(), M, H,
+            AGGREGATION_IDS[aggregation], inv_norm, stream)
+    _raise_on(err, "molecule_readout")
     return out
 
 
@@ -739,7 +819,7 @@ class _SrcReadoutFn(torch.autograd.Function):
     """``a[v] = sum_{c: dst c = v} w[c] h[src c]`` with the VJP of
     pallas_mpnn.py ``_src_readout_op``: since ``src c = dst(srev c)``,
     ``dh[u] = sum_{c': dst c' = u} w[srev c'] g[src c']``, the same kernel
-    with the weights ``w[srev]``, gathered once in the backward."""
+    with the weights read through ``srev``."""
 
     @staticmethod
     def forward(ctx, h, w_sorted, src_sorted, srev, rowptr):
@@ -751,7 +831,7 @@ class _SrcReadoutFn(torch.autograd.Function):
     def backward(ctx, g):
         w_sorted, src_sorted, srev, rowptr = ctx.saved_tensors
         dh = _atom_gather_forward(src_readout_sorted, g.contiguous(),
-                                  w_sorted[srev.long()], src_sorted, rowptr)
+                                  w_sorted, src_sorted, rowptr, widx=srev)
         return dh, None, None, None, None
 
 
@@ -983,38 +1063,69 @@ def csr_gather_sum(h: torch.Tensor, idx: torch.Tensor,
     csrc/atom_readout.cu, counted with sub-row 3a
     (``atom_neighbor_sum_sorted.launches``) at unit weights and 3b
     (``src_readout_sorted.launches``) otherwise. The edge-partitioned
-    encoder (parallel/partition.py) builds its gather VJP and its molecule
-    readout on it. idx: (B,) int32 rows of ``h``; w: (B,) f32 or None;
-    rowptr: (A + 1,) int32."""
+    encoder (parallel/partition.py) builds its gather VJP on it. idx: (B,)
+    int32 rows of ``h``; w: (B,) f32 or None; rowptr: (A + 1,) int32."""
     wrapper = atom_neighbor_sum_sorted if w is None else src_readout_sorted
     return _atom_gather_forward(wrapper, h.contiguous(), w, idx, rowptr,
                                 rows=h.shape[0])
 
 
 class _MolReadoutFn(torch.autograd.Function):
-    """``out[m] = sum_{r in run(m)} w[r] h[r]`` over a molecule CSR
-    (``mol_idx``, ``mol_rowptr``) on :func:`csr_gather_sum`'s weighted
-    entry, the weights read from ``w`` (A,) at call time; the VJP is the
-    row gather ``w[r] g[a2mol r]``, which gives 0 to every row of weight 0
-    and so to every row outside the CSR."""
+    """``out[m] = aggregate(sum_{r in run(m)} w[r] h[r])`` over a molecule
+    CSR (``mol_idx``, ``mol_rowptr``) in one launch of
+    ``molecule_readout_f32`` (:func:`molecule_readout_plain` on CPU
+    tensors), the weights read from ``w`` (A,) through the CSR's index at
+    call time; with ``aggregation`` None the sum alone, one launch of the
+    gather entry with the weight index ``idx``. Either launch is counted
+    in ``molecule_readout_sorted.launches``. The VJP is the one
+    autograd takes through :func:`aggregate_molecules` (``g * dop``; for
+    ``mean`` ``where(denom > 0, ., 0)`` then the division by
+    ``clamp(denom, 1e-12)``, for ``norm`` the division by the scalar), then
+    the row gather ``w[r] g'[a2mol r]``, which gives 0 to every row of
+    weight 0 and so to every row outside the CSR."""
 
     @staticmethod
-    def forward(ctx, h, w, a2mol, idx, rowptr):
-        ctx.save_for_backward(w, a2mol)
-        return csr_gather_sum(h, idx, w[idx.long()].contiguous(), rowptr)
+    def forward(ctx, h, w, a2mol, idx, rowptr, denom, degree_of_polym,
+                aggregation, aggregation_norm):
+        ctx.save_for_backward(w, a2mol, denom, degree_of_polym)
+        ctx.aggregation, ctx.aggregation_norm = aggregation, aggregation_norm
+        if h.device.type == "cpu":
+            return molecule_readout_plain(h, w, idx, rowptr, denom,
+                                          degree_of_polym, aggregation,
+                                          aggregation_norm)
+        if aggregation is None:
+            # the sum alone: the gather entry, its weights read through idx
+            out = _atom_gather_launch("molecule_sum", h, idx, w, rowptr,
+                                      rows=h.shape[0], widx=idx)
+        else:
+            out = _molecule_readout_launch(h, w, idx, rowptr, denom,
+                                           degree_of_polym, aggregation,
+                                           aggregation_norm)
+        molecule_readout_sorted.launches += 1
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        w, a2mol = ctx.saved_tensors
-        return w[:, None] * g[a2mol.long()], None, None, None, None
+        w, a2mol, denom, degree_of_polym = ctx.saved_tensors
+        if ctx.aggregation is not None:
+            g = g * degree_of_polym[:, None]
+            if ctx.aggregation == "mean":
+                g = torch.where(denom[:, None] > 0, g, 0)
+                g = g / torch.clamp(denom, min=1e-12)[:, None]
+            elif ctx.aggregation == "norm":
+                g = g / ctx.aggregation_norm
+        return (w[:, None] * g[a2mol.long()], None, None, None, None, None,
+                None, None, None)
 
 
 def molecule_sum(h: torch.Tensor, w: torch.Tensor, a2mol: torch.Tensor,
                  idx: torch.Tensor, rowptr: torch.Tensor) -> torch.Tensor:
     """The weighted atom sum of each molecule, ``(A, H) -> (M, H)``, in the
-    CSR's row order (:class:`_MolReadoutFn`). h (A, H) f32; w (A,) f32;
-    a2mol (A,) int; idx int32 rows of ``h``; rowptr (M + 1,) int32."""
-    return _MolReadoutFn.apply(h, w, a2mol, idx, rowptr)
+    CSR's row order (:class:`_MolReadoutFn` with no aggregation). h (A, H)
+    f32; w (A,) f32; a2mol (A,) int; idx int32 rows of ``h``; rowptr
+    (M + 1,) int32."""
+    return _MolReadoutFn.apply(h, w, a2mol, idx, rowptr, None, None, None,
+                               100.0)
 
 
 def aggregate_molecules(wsum: torch.Tensor, denom: torch.Tensor,
@@ -1045,21 +1156,24 @@ def molecule_readout_sorted(h: torch.Tensor, w: torch.Tensor,
                             aggregation: str = "mean",
                             aggregation_norm: float = 100.0) -> torch.Tensor:
     """The molecule readout of ``ops/segment.py`` ``molecule_readout``
-    with every sum in a fixed order: :func:`molecule_sum` over the
-    batch's molecule CSR (``aux``'s ``mol_idx`` and ``mol_rowptr``), the
-    ``mean`` denominator ``aux["mol_denom"]`` summed on the host in the
-    same order, then :func:`aggregate_molecules`. On CPU tensors the sum
-    is its plain version, ``src_readout_plain``; on CUDA tensors one
-    launch of the gather entry, counted in ``src_readout_sorted.launches``
-    (sub-row 3b)."""
-    wsum = molecule_sum(h, w, a2mol, aux["mol_idx"], aux["mol_rowptr"])
-    return aggregate_molecules(wsum, aux["mol_denom"], degree_of_polym,
-                               aggregation, aggregation_norm)
+    with every sum in a fixed order: the weighted sum over the batch's
+    molecule CSR (``aux``'s ``mol_idx`` and ``mol_rowptr``), the ``mean``
+    denominator ``aux["mol_denom"]`` summed on the host in the same order,
+    then :func:`aggregate_molecules`, bit for bit. On CPU tensors that
+    composition (:func:`molecule_readout_plain`); on CUDA tensors one
+    launch of ``molecule_readout_f32``, counted in
+    ``molecule_readout_sorted.launches``."""
+    if aggregation not in ("mean", "sum", "norm"):
+        raise ValueError(f"unknown aggregation {aggregation!r}")
+    return _MolReadoutFn.apply(h, w, a2mol, aux["mol_idx"],
+                               aux["mol_rowptr"], aux["mol_denom"],
+                               degree_of_polym.contiguous(), aggregation,
+                               aggregation_norm)
 
 
 WRAPPERS = (band_rev_layer, band_rev_bwd, atom_readout, band_agg, band_bwd,
             band_matmul_act, band_matmul, atom_neighbor_sum_sorted,
-            src_readout_sorted)
+            src_readout_sorted, molecule_readout_sorted)
 TC_WRAPPERS = (band_rev_layer, band_matmul_act, band_matmul)
 
 

@@ -553,7 +553,8 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
             """One 2-D halo step over ``group`` (one loader batch a dp
             row), or, for a batch the partitioner refuses, the same
             batches one by one on the single-device step (JAX
-            trainer.py:639-691)."""
+            trainer.py:639-691), each in the dst-sorted layout so that
+            its sums run in a fixed order."""
             nonlocal gp_fallback_warned
             n_real = len(group)
             group = group + [group[-1].masked_out()] * (gp_dp - n_real)
@@ -571,8 +572,8 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
                          f"unshardable batch ({exc})")
                     gp_fallback_warned = True
                 for b in group[:n_real]:
-                    loss, gnorm = run_step(train_step,
-                                           batch_tensors(b, device))
+                    loss, gnorm = run_step(
+                        train_step, batch_tensors(b.sorted_layout(), device))
                     losses.append(loss)
                     gnorms.append(gnorm)
                 return

@@ -237,3 +237,112 @@ def test_training_steps_add_no_float_atomics(tmp_path, atomics, case):
         with atomics:
             cross_validate(cfg)
     assert not atomics.found, sorted(set(atomics.found))
+
+
+@pytest.mark.parametrize("weights", ["unit", "polymer"])
+@pytest.mark.parametrize("aggregation", ["mean", "sum", "norm"])
+def test_molecule_readout_equals_the_composition_bit_for_bit(aggregation,
+                                                             weights):
+    """The one-launch readout's Function (on CPU tensors its plain version
+    and its own VJP) against autograd through the composition it replaces,
+    ``molecule_sum`` then ``aggregate_molecules``: output and gradient
+    equal bit for bit, with a molecule of no atoms and tail padding."""
+    from polymer_chemprop_tpu_torch.ops.sorted_aux import build_molecule_csr
+    w, a2mol, dop, _ = _readout_batch()
+    if weights == "unit":
+        w = (w != 0).astype(np.float32)
+    M, A = dop.shape[0], w.shape[0]
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(rng.normal(size=(A, H)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(M, H)).astype(np.float32))
+    aux = {k: torch.from_numpy(v)
+           for k, v in build_molecule_csr(a2mol, w, M).items()}
+    wt, dopt = torch.from_numpy(w), torch.from_numpy(dop)
+    mol = torch.from_numpy(a2mol).long()
+    x, y = (h.clone().requires_grad_() for _ in range(2))
+    got = bm.molecule_readout_sorted(x, wt, mol, aux, dopt, aggregation, 30.0)
+    want = bm.aggregate_molecules(
+        bm.molecule_sum(y, wt, mol, aux["mol_idx"], aux["mol_rowptr"]),
+        aux["mol_denom"], dopt, aggregation, 30.0)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.autograd.grad(got, x, g)[0],
+                       torch.autograd.grad(want, y, g)[0])
+
+
+def test_weights_through_an_index_equal_the_gathered_weights():
+    """The plain version of the gather entry's weight index: the weights
+    ``w[widx]`` read through it equal the gathered weights, bit for bit;
+    the molecule readout's plain sum reads them through the CSR index."""
+    rng = np.random.default_rng(2)
+    A, B, K = 12, 40, 25
+    counts = rng.multinomial(B - 5, np.ones(A) / A)
+    rowptr = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)])
+                              .astype(np.int32))
+    h = torch.from_numpy(rng.normal(size=(A, H)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, A, B).astype(np.int32))
+    widx = torch.from_numpy(rng.integers(0, K, B).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(0.1, 1.0, K).astype(np.float32))
+    assert torch.equal(bm.src_readout_plain(h, w, idx, rowptr, widx),
+                       bm.src_readout_plain(h, w[widx.long()], idx, rowptr))
+    wa = w[:A].contiguous()
+    assert torch.equal(
+        bm.molecule_readout_plain(h, wa, idx[:A].contiguous(),
+                                  rowptr[:4].contiguous(), None, None, None),
+        bm.src_readout_plain(h, wa[idx[:A].long()], idx[:A].contiguous(),
+                             rowptr[:4].contiguous()))
+
+
+def test_graph_parallel_fallback_trains_on_the_sorted_layout(atomics):
+    """A batch of the graph-parallel trainer's natural-order loader as its
+    single-device fallback hands it to the step (``DeviceBatch.
+    sorted_layout``): the layout a sorted loader builds, and one step on
+    it adds no float atomics and equals the step on the natural-order
+    batch (``index_add_`` segment sums) within 1e-6."""
+    from polymer_chemprop_tpu_torch.config import TrainConfig
+    from polymer_chemprop_tpu_torch.models.init import reference_init_model
+    from polymer_chemprop_tpu_torch.models.model import build_model_config
+    from polymer_chemprop_tpu_torch.train.scheduler import (
+        build_optimizer, build_schedule)
+    from polymer_chemprop_tpu_torch.train.step import (TrainStep,
+                                                       batch_tensors,
+                                                       make_loss_fn)
+    path = os.path.join(DATA, "regression.csv")
+    cfg = TrainConfig(data_path=path, dataset_type="regression",
+                      hidden_size=16, ffn_hidden_size=16, device="cpu")
+    fcfg = cfg.featurization()
+    data = get_data(path, config=fcfg, max_data_size=20)
+    data.normalize_targets()
+    natural, sorted_ = (next(iter(MoleculeDataLoader(
+        data, fcfg, batch_size=10, shuffle=True, seed=0, num_workers=1,
+        sorted_aux=s))) for s in (False, True))
+    assert "sorted_aux" not in natural.graph_arrays[0]
+    converted = natural.sorted_layout()
+    for got, want in zip(converted.graph_arrays, sorted_.graph_arrays):
+        assert got.keys() == want.keys()
+        for k in want:
+            if k == "sorted_aux":
+                for a in want[k]:
+                    np.testing.assert_array_equal(got[k][a], want[k][a])
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    mcfg = build_model_config(cfg, data.num_tasks, data=data)
+
+    def step(batch):
+        model = reference_init_model(mcfg, 0)
+        train_step = TrainStep(
+            model, build_optimizer("adam", model.parameters()),
+            build_schedule("noam", init_lr=1e-4, max_lr=1e-3,
+                           final_lr=1e-4, warmup_epochs=2.0, epochs=30,
+                           steps_per_epoch=2),
+            make_loss_fn(mcfg))
+        loss, _ = train_step(batch_tensors(batch, "cpu"))
+        return loss, [p.detach() for p in model.parameters()]
+
+    want_loss, want = step(natural)
+    with atomics:
+        got_loss, got = step(converted)
+    assert not atomics.found, sorted(set(atomics.found))
+    np.testing.assert_allclose(got_loss.item(), want_loss.item(), rtol=1e-6)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6)

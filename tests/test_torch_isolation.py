@@ -194,14 +194,19 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
                                                    "relu"),
                  lambda: band_mpnn.band_matmul(m, wh, w, rowptr),
                  lambda: band_mpnn.atom_neighbor_sum_sorted(h, aux),
-                 lambda: band_mpnn.src_readout_sorted(h, aux)):
+                 lambda: band_mpnn.src_readout_sorted(h, aux),
+                 lambda: band_mpnn.molecule_readout_sorted(
+                     h, w[:2], rowptr[:2], dict(
+                         mol_idx=rowptr[:2], mol_rowptr=rowptr,
+                         mol_denom=w[:2]), w[:2])):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
     assert band_mpnn.launch_counts() == dict.fromkeys(
         ("band_rev_layer", "band_rev_bwd", "atom_readout", "band_agg",
          "band_bwd", "band_matmul_act", "band_matmul",
-         "atom_neighbor_sum_sorted", "src_readout_sorted"), 0)
-    # the probes' two wrappers count apart from the encoder's nine
+         "atom_neighbor_sum_sorted", "src_readout_sorted",
+         "molecule_readout_sorted"), 0)
+    # the probes' two wrappers count apart from the encoder's ten
     from polymer_chemprop_tpu_torch.ops import probe_kernels
     with pytest.raises(ValueError, match="unsupported device"):
         probe_kernels.band_ctrl(m, m, wh, w, rowptr[:1], rowptr[:1], "noq")

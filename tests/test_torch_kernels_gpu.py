@@ -1035,6 +1035,157 @@ def test_csr_gather_sum_over_bond_rows(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("H", [37, 300, 1600])
+def test_atom_gather_weights_through_an_index(cuda, H):
+    """The gather entry with a weight index (3b's VJP reads w[srev]) on the
+    runs of every length 0..40: bit for bit the same entry on the gathered
+    weights and the composed form, and against the plain version."""
+    m, w, rp, srev, _ = _long_runs(H, cuda)
+    A = rp.shape[0] - 1
+    gen = torch.Generator(cuda).manual_seed(7)
+    src = torch.randint(1, A, (m.shape[0],), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    h = m[:A].contiguous()
+    launch = band_mpnn._atom_gather_launch
+    got = launch("t", h, src, w, rp, widx=srev)
+    w_rev = w[srev.long()]
+    assert torch.equal(got, launch("t", h, src, w_rev, rp))
+    assert torch.equal(got, band_mpnn.atom_readout(
+        h.index_select(0, src.long()), w_rev, rp))
+    _close(got, band_mpnn.src_readout_plain(h, w, src, rp, srev))
+
+
+MOL_RUNS = (0, 1, 4, 5, 16, 17, 40)
+
+
+def _molecule_csr(H, dev, seed=8):
+    """A molecule CSR over shuffled atom rows: molecule 0 empty, then runs
+    of MOL_RUNS twice and 30 of 8-20 atoms, shuffled; fractional weights
+    with some 0; the host mean denominator; Xn-like scales."""
+    from polymer_chemprop_tpu_torch.ops.sorted_aux import build_molecule_csr
+    rng = np.random.default_rng(seed)
+    counts = np.concatenate([MOL_RUNS, MOL_RUNS, rng.integers(8, 21, 30)])
+    counts = np.concatenate([[0], rng.permutation(counts)])
+    M, A = counts.shape[0], 1 + int(counts.sum()) + 5
+    a2mol = np.zeros(A, np.int64)
+    a2mol[1:1 + counts.sum()] = rng.permutation(np.repeat(np.arange(M),
+                                                          counts))
+    w = rng.uniform(0.05, 1.0, A).astype(np.float32)
+    w[rng.random(A) < 0.1] = 0.0
+    w[0] = w[1 + counts.sum():] = 0.0
+    csr = build_molecule_csr(a2mol, w, M,
+                             rows=np.arange(1, 1 + counts.sum()))
+    T = lambda x: torch.as_tensor(x, device=dev)
+    h = T(rng.normal(size=(A, H)).astype(np.float32))
+    dop = T((1.0 + np.log10(rng.uniform(1, 100, M))).astype(np.float32))
+    return h, T(w), T(a2mol), {k: T(v) for k, v in csr.items()}, dop
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aggregation", [None, "mean", "sum", "norm"])
+@pytest.mark.parametrize("H", [37, 300, 1600])
+def test_molecule_readout_on_runs_of_every_length(cuda, H, aggregation):
+    """``molecule_readout_f32`` (or with no aggregation ``molecule_sum``,
+    the gather entry with the weight index) on runs of 0, 1, 4, 5, 16, 17
+    and 40 atoms (and 8-20): the sum bit for bit the composed form
+    ``atom_readout(h[idx], w[idx])``, the aggregation bit for bit torch's
+    ops on it, and within the kernel tolerance of the plain version; the
+    empty molecule reads exactly 0; one launch, counted."""
+    h, w, a2mol, aux, dop = _molecule_csr(H, cuda)
+    idx, rp, denom = aux["mol_idx"], aux["mol_rowptr"], aux["mol_denom"]
+    n = int(rp[-1])
+    il = idx[:n].long()
+    wsum = band_mpnn.atom_readout(h.index_select(0, il), w[il], rp)
+    want = wsum if aggregation is None else band_mpnn.aggregate_molecules(
+        wsum, denom, dop, aggregation, 30.0)
+    plain = band_mpnn.molecule_readout_plain(h, w, idx, rp, denom, dop,
+                                             aggregation, 30.0)
+    before = band_mpnn.molecule_readout_sorted.launches
+    if aggregation is None:
+        got = band_mpnn.molecule_sum(h, w, a2mol, idx, rp)
+    else:
+        got = band_mpnn.molecule_readout_sorted(h, w, a2mol, aux, dop,
+                                                aggregation, 30.0)
+    assert band_mpnn.molecule_readout_sorted.launches == before + 1
+    _close(got, plain)
+    assert torch.equal(got, want)
+    assert not got[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2])
+def test_molecule_readout_on_misaligned_rows(cuda, offset):
+    """h as a view 4 or 8 bytes past a 16-byte boundary (one float a
+    thread): bit for bit the aligned result."""
+    h, w, _, aux, dop = _molecule_csr(300, cuda)
+    flat = torch.empty(h.numel() + offset, device=cuda)
+    view = flat[offset:].view(h.shape)
+    view.copy_(h)
+    assert view.data_ptr() % 16 == 4 * offset
+    args = (w, aux["mol_idx"], aux["mol_rowptr"], aux["mol_denom"], dop,
+            "mean")
+    got = band_mpnn._molecule_readout_launch(view, *args)
+    assert torch.equal(got, band_mpnn._molecule_readout_launch(h, *args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weights", ["unit", "polymer"])
+@pytest.mark.parametrize("aggregation", ["mean", "sum", "norm"])
+def test_molecule_readout_and_vjp_equal_the_composition(cuda, aggregation,
+                                                        weights):
+    """``molecule_readout_sorted`` on a batch of copolymers (or molecules
+    at unit weights): one launch counted in molecule_readout_sorted, and
+    its output and VJP bit for bit the composed readout's
+    (probes/readout_probe.py ``composed_readout``), within the kernel
+    tolerance of ops/segment.py ``molecule_readout`` (index_add_)."""
+    from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
+    from polymer_chemprop_tpu_torch.ops import segment
+    from polymer_chemprop_tpu_torch.probes.readout_probe import (
+        composed_readout)
+    polymer = weights == "polymer"
+    gb = mol2graph(POLYMERS if polymer else SMILES,
+                   FeaturizationConfig(polymer=polymer))
+    t = batch_to_tensors(gb.arrays(sorted_aux=True), cuda)
+    aux, a2mol, dop, w = (t["sorted_aux"], t["a2mol"], t["degree_of_polym"],
+                          t["w_atoms"])
+    A, M = a2mol.shape[0], dop.shape[0]
+    gen = torch.Generator(cuda).manual_seed(9)
+    h = torch.randn((A, 300), device=cuda, generator=gen)
+    g = torch.randn((M, 300), device=cuda, generator=gen)
+    x = h.clone().requires_grad_(True)
+    before = band_mpnn.launch_counts()
+    got = band_mpnn.molecule_readout_sorted(x, w, a2mol, aux, dop,
+                                            aggregation)
+    after = band_mpnn.launch_counts()
+    assert after == dict(before, molecule_readout_sorted=before[
+        "molecule_readout_sorted"] + 1)
+    dh = torch.autograd.grad(got, x, g)[0]
+    want, dh_want = composed_readout(h, w, a2mol, aux, dop, aggregation, g)
+    assert torch.equal(got, want)
+    assert torch.equal(dh, dh_want)
+    _close(got, segment.molecule_readout(h, w, a2mol, M, dop, aggregation))
+
+
+@pytest.mark.gpu
+def test_molecule_readout_rejects_bad_inputs(cuda):
+    from polymer_chemprop_tpu_torch.kernels.build import load
+    h, w, _, aux, dop = _molecule_csr(32, cuda)
+    args = (h, w, aux["mol_idx"], aux["mol_rowptr"], aux["mol_denom"], dop)
+    out = torch.empty((dop.shape[0], 32), device=cuda)
+    # an aggregation id the entry does not know: cudaErrorInvalidValue
+    err = load("atom_readout").molecule_readout_f32(
+        *(t.data_ptr() for t in (h, args[2], w) + args[3:]), out.data_ptr(),
+        dop.shape[0], 32, 0, 1.0, torch.cuda.current_stream(cuda).cuda_stream)
+    assert err != 0
+    for aggregation in ("max", None):
+        with pytest.raises(ValueError, match="aggregation"):
+            band_mpnn._molecule_readout_launch(*args, aggregation)
+    with pytest.raises(ValueError, match="shape"):
+        band_mpnn._molecule_readout_launch(h, w[:-1].contiguous(),
+                                           *args[2:], "sum")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("atom_messages", [False, True])
 def test_model_with_features_and_descriptors_card_against_cpu(
         cuda, atom_messages):
@@ -1095,12 +1246,12 @@ def test_model_with_features_and_descriptors_card_against_cpu(
         outs.append((preds.cpu(), loss.item(), grads, counts))
     (want, want_loss, want_grads, cpu_counts), (got, loss, grads, counts) = outs
     assert not any(cpu_counts.values())
-    # the molecule readout on src_readout_sorted's entry; atom_messages'
-    # f_sum on atom_readout
+    # the molecule readout on its own counter; atom_messages' f_sum on
+    # atom_readout
     launched = ({"atom_neighbor_sum_sorted", "src_readout_sorted",
-                 "atom_readout"} if atom_messages else
-                {"band_rev_layer", "band_rev_bwd", "atom_readout",
-                 "src_readout_sorted"})
+                 "atom_readout", "molecule_readout_sorted"} if atom_messages
+                else {"band_rev_layer", "band_rev_bwd", "atom_readout",
+                      "molecule_readout_sorted"})
     assert {k for k, v in counts.items() if v} == launched, counts
     assert "encoders.0.W_d.weight" in grads
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
@@ -1149,7 +1300,7 @@ def test_ssl_step_card_against_cpu(cuda, with_graph):
     assert not any(cpu_counts.values())
     assert {k for k, v in counts.items() if v} == \
         {"band_rev_layer", "band_rev_bwd", "atom_readout",
-         "src_readout_sorted"}, counts
+         "molecule_readout_sorted"}, counts
     assert not any(tc.values()), tc
     np.testing.assert_allclose([loss, gnorm], [want_loss, want_gnorm],
                                rtol=1e-4)

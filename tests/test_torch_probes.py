@@ -267,6 +267,32 @@ def test_csr_rows_probe_runs_on_cpu(csr_probe_out, kernel):
         assert ("in_order" in r) == (kernel == "band_rev_bwd")
 
 
+def test_readout_probe_runs_on_the_cpu(capsys):
+    """The readout probe's entry point on the CPU (plain versions, host
+    clock): both shapes, every use of the gather entry timed cold and warm
+    beside its bytes bound and hashed; the molecule readout op equals its
+    plain version's output, and 3a equals 3b at unit weights."""
+    from polymer_chemprop_tpu_torch.probes import readout_probe
+    out = readout_probe.main(["--device", "cpu", "--molecules", "16",
+                              "--hidden", "32", "--reps", "2", "--warm",
+                              "2"])
+    printed = capsys.readouterr().out
+    assert set(out) == {"bench", "train"}
+    for shape, rows in out.items():
+        assert set(rows) == {"mol gather", "mol op", "mol op+vjp",
+                             "mol plain", "3a", "3b", "3b vjp",
+                             "3a distinct"}
+        for label, r in rows.items():
+            assert r["cold"] > 0 and r["warm"] > 0 and r["bound_ms"] > 0
+            assert len(r["sha256"]) == 64
+            assert f"[readout] {shape:5s} {label:18s}" in printed
+        assert rows["mol op"]["sha256"] == rows["mol plain"]["sha256"]
+        assert rows["3a"]["sha256"] == rows["3b"]["sha256"]
+    # the atom rows in the molecule CSR's runs, not the padded table
+    assert readout_probe.readout_bytes(700, 50, 300) == 4 * (
+        700 * 300 + 50 * 300 + 2 * 700 + 51 + 2 * 50) == 906204
+
+
 def test_fp32_stage_fills_the_block_at_the_widest_fused_width():
     """The FP32 stage's shared memory (band_tile.cuh smem_bytes) is the
     card's whole 227 KiB opt-in at hidden 1,495, so the fused forms stop
