@@ -338,6 +338,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``atomic_kernel``: ``index_add_``'s ``indexFunc*``, ``scatter_add``,
    accumulating ``index_put_``), no float atomic dispatched.
 
+15. The benchmark and the batch-scaling probe (``bench_path``): the
+   entry points ``polymer_chemprop_tpu_torch/bench.py`` and
+   ``probes/batch_scaling_probe.py``, called in-process at full width
+   (1,024 molecules, hidden 300, depth 3; ``--wide`` hidden 2,400, depth
+   6): the default, ``--fastband``, ``--polymer``, ``--bf16``, ``--wide``,
+   ``--predict`` and ``--compare`` lines (``BENCH_TRIALS`` trials each),
+   each of which fails unless its layer form's kernels launched in its
+   timed window; then the scaling probe at 50, 1,024, 2,048 and 4,096
+   molecules. Each training line's first step is held against the same
+   step on the host's CPU from the same parameters: the default and
+   ``--polymer`` lines at full size within 1e-4 (phase 4's first step),
+   ``--bf16`` (2e-3), ``--fastband`` (``"default"``, 1e-2, as
+   tests/test_torch_band_tc.py holds it) and ``--wide`` (1e-4) at 64
+   molecules on the same code path; ``--compare``'s port line repeats the
+   default line's first step bit for bit.
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -4766,6 +4782,106 @@ def determinism_path(card):
     return launches, tc_launches
 
 
+# -- phase 15 ---------------------------------------------------------------
+
+BENCH_DEVICE = "cuda"            # the lines' device (a rehearsal: "cpu")
+BENCH_TRIALS = 3                 # trials a line (the module's default: 5)
+BENCH_ARGS = []                  # further bench flags (a rehearsal: a size)
+BENCH_SIZES = (1024, 2048, 4096, 50)   # the scaling probe's, vs the first
+BENCH_PROBE_ARGS = ["--reps", "10", "--warm", "20"]
+BENCH_HOLD_MOLECULES = 64
+# flags, then (molecules the first step is held at, None: the line's own;
+# rtol) of each training line
+BENCH_LINES = {"default": ([], (None, 1e-4)),
+               "fastband": (["--fastband"], (BENCH_HOLD_MOLECULES, 1e-2)),
+               "polymer": (["--polymer"], (None, 1e-4)),
+               "bf16": (["--bf16"], (BENCH_HOLD_MOLECULES, 2e-3)),
+               "wide": (["--wide"], (BENCH_HOLD_MOLECULES, 1e-4)),
+               "predict": (["--predict"], None),
+               "compare": (["--compare"], None)}
+
+
+def _bench_first_step(bench, flags, gb, device):
+    """(loss, gnorm) of the first step of the bench line of ``flags`` on
+    the batch ``gb`` on ``device``, from the line's own parameters."""
+    _, kw = bench.line_config(bench.parse_args(flags))
+    step, batch = bench.train_setup(gb, device, **kw)
+    loss, gnorm = step(batch)
+    return float(loss), float(gnorm)
+
+
+def bench_path(card, gb):
+    """Phase 15; ``gb`` is phase 1's bench batch (the bench's default
+    batch: the same molecules, featurizer and padding)."""
+    from polymer_chemprop_tpu_torch import bench
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.probes import batch_scaling_probe
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+    tc_launches = dict.fromkeys(bm.tc_launch_counts(), 0)
+
+    def counted(fn):
+        bm.reset_launch_counts()
+        out = fn()
+        for k, v in bm.launch_counts().items():
+            launches[k] += v
+        for k, v in bm.tc_launch_counts().items():
+            tc_launches[k] += v
+        return out
+
+    trials = ["--device", BENCH_DEVICE, "--trials", str(BENCH_TRIALS)]
+    n_full = bench.parse_args(BENCH_ARGS).molecules
+    full = {False: gb if gb.n_mols == n_full else bench.load_batch(n_full),
+            True: bench.load_batch(n_full, polymer=True)}
+    lines = {}
+    for name, (flags, hold) in BENCH_LINES.items():
+        t0 = time.perf_counter()
+        batch = full["--polymer" in flags]
+        out = counted(lambda: bench.main(flags + trials + BENCH_ARGS, batch))
+        lines[name] = out
+        for line in out:
+            check(np.isfinite(line["value"]) and line["value"] > 0
+                  and line["step_ms"] > 0, line)
+        log(f"[bench] {name}: {out[-1]['value']:.1f} {out[-1]['unit']}, "
+            f"{out[-1]['step_ms']:.4f} ms a step, vs_baseline "
+            f"{out[-1]['vs_baseline']} ({time.perf_counter() - t0:.1f} s "
+            f"on {card})")
+        if hold is None:
+            continue
+        n, rtol = hold
+        argv = flags + BENCH_ARGS
+        if n is None:
+            got = (out[-1]["first_loss"], out[-1]["first_gnorm"])
+            n = n_full
+        else:
+            batch = bench.load_batch(n, "--polymer" in flags)
+            got = counted(lambda: _bench_first_step(bench, argv, batch,
+                                                    BENCH_DEVICE))
+        want = _bench_first_step(bench, argv, batch, "cpu")
+        log(f"[bench] {name}: first step (loss, gnorm) at {n} molecules, "
+            f"{BENCH_DEVICE} {got} cpu {want}")
+        np.testing.assert_allclose(got, want, rtol=rtol)
+    yard, port = lines["compare"]
+    check(yard["unit"] == "edges/s" and yard["vs_baseline"] == 1.0, yard)
+    check((port["first_loss"], port["first_gnorm"])
+          == (lines["default"][0]["first_loss"],
+              lines["default"][0]["first_gnorm"]),
+          f"--compare's first step differs from the default line's: "
+          f"{port} {lines['default'][0]}")
+    check(lines["predict"][0]["vs_baseline"] is None, lines["predict"])
+
+    rows = counted(lambda: batch_scaling_probe.main(
+        [str(n) for n in BENCH_SIZES] + ["--device", BENCH_DEVICE,
+                                         "--trials", str(BENCH_TRIALS)]
+        + BENCH_PROBE_ARGS, {n_full: full[False]}))
+    for n, row in rows.items():
+        check(all(v > 0 for p in batch_scaling_probe.PARTS
+                  for v in row[p].values()), (n, row))
+    log(f"[bench] phase 15 launches {launches} (tensor cores "
+        f"{tc_launches}), {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, tc_launches
+
+
 def main() -> int:
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
@@ -4793,13 +4909,15 @@ def main() -> int:
     goldens, goldens_tc = golden_path(card)
     polymer, polymer_tc = polymer_path(card)
     determinism, determinism_tc = determinism_path(card)
+    bench_counts, bench_tc = bench_path(card, gb)
     for counts in (fingerprint, training, plain_band, atom_messages,
                    features, entry, parallel, goldens, polymer, determinism,
-                   probe_path(card, dev, gb, results)):
+                   bench_counts, probe_path(card, dev, gb, results)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     for counts in (fingerprint_tc, training_tc, plain_band_tc, features_tc,
-                   entry_tc, goldens_tc, polymer_tc, determinism_tc):
+                   entry_tc, goldens_tc, polymer_tc, determinism_tc,
+                   bench_tc):
         for name, count in counts.items():
             tc_launches[name] += count
     check(all(count > 0 for count in launches.values()),
