@@ -6,6 +6,11 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
+or, on a machine with four cards of one host (the last section below;
+the count is fixed at four, whose 2-D steps are dp 2 x ep 2):
+
+    python3 chip_smoke.py --cards 4
+
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Print the card (``nvidia-smi`` name and power limit, torch's device
@@ -259,10 +264,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    profiler, which must show no
    ``index_add_``. Four ranks: the 2-D halo step (dp 2 x ep 2), bonds and
    ``atom_messages``, 3 steps against one rank on the batches of 100
-   (1e-4 as above; equal on all ranks). Then ``cli train`` under 2-rank
+   (1e-4 as above; equal on all ranks). The dp step and both 2-D steps
+   run twice from the seed, and each run's parameters' SHA-256 must be
+   equal. Between the two launches, ``polymer_chemprop_tpu_torch.multichip``
+   (the counterpart of ``__graft_entry__.py``'s ``dryrun_multichip``) at
+   2 ranks on the card, every check of its sections passing, every rank
+   on gloo. Then ``cli train`` under 2-rank
    torchrun, ``--data_parallel`` and ``--graph_parallel``, 3 epochs, on
    regression.csv and the 200 copolymers, each test score within 1e-3 of
-   the same run on one rank in this call.
+   the same run on one rank in this call. The ``[parallel]`` lines name
+   the backend they measured.
 
 11. ``sklearn_train`` / ``sklearn_predict`` (no kernel of the port's: the
    forests and SVMs of ``baselines/`` are tensor code on the card; every
@@ -354,6 +365,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    molecules on the same code path; ``--compare``'s port line repeats the
    default line's first step bit for bit.
 
+``--cards 4``: phases 1 and 2 (the build, and every kernel held against
+its plain version on card 0, which the ``kernels`` line reports), then
+the four-card phase, one rank a card, so every rank on NCCL (raises with
+fewer than four cards, and unless every rank reports NCCL on a card of
+its own). ``nvidia-smi topo -m`` (and ``nvlink --status``) printed; rows
+3, 3a, 3b and the gather VJP at an ep-4 shard's shapes against their
+plain versions; ``multichip`` at 4 and at 2 ranks (4's with
+``NCCL_DEBUG=INFO``, whose channel lines name the transport); then 4
+ranks of this script: dp, 3 steps of a micro-batch of 25 a rank against
+one card at batch 100; the four edge-parallel forwards at ep 4 on the
+bench batch (overlapped against whole-window 1e-6); the bench batch's
+halo step at ep 4 (about 7,000 real bonds a shard) and its 2-D step (dp 2
+x ep 2, a half of the batch a dp row), 3 SGD steps each against one
+card's on the whole batch (loss 1e-4, parameters 1e-4 of each tensor's
+largest entry), then each step's ms at four cards and one card's; the
+2-D step on training batches with bond and atom messages (as phase 10);
+each of these five run twice from the seed, every rank's and both runs'
+parameters' SHA-256 equal; the halo exchange a layer at the bench
+window, the gradient all-reduce, and cached dp (a micro-batch of 13 a
+rank), gp (ep 4) and one-card epochs at batch 50. Phase 10's ranks and
+these are checked and logged by one function (``check_ranks``). Last,
+``cli train`` under 4-rank torchrun at the default ``band_precision``:
+dp at batch 100 and gp at ep 4 (batch 50) on regression.csv and the 200
+copolymers, and gp with ``--graph_parallel_dp 2`` on regression.csv, each
+test score within 1e-3 of one card's run at the batch a step takes, and
+the gp runs' count of batches that fell back to the single-device step
+printed (all of them is a failure; phase 10 allows none). The
+``kernels`` line counts every rank's launches.
+
 The second-to-last line of output is a JSON object with each kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -364,6 +404,7 @@ import csv
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3459,8 +3500,8 @@ def entry_points_path(card):
 PAR_STEPS, PAR_LR = 3, 0.01      # SGD steps held against one rank
 PAR_EPOCHS = 3                   # cli train under torchrun
 PAR_TIMEOUT = 300                # seconds a launch may take
-PAR_CARD = "ranks sharing one card"
 PAR_DEVICE = "cuda"              # every rank's device (a rehearsal: "cpu")
+CARDS = 4                        # --cards: ranks, one a card (2-D: 2 x 2)
 
 
 def par_model(dev, atom_messages=False):
@@ -3510,20 +3551,6 @@ def sgd(model):
             constant_schedule(PAR_LR))
 
 
-def param_rel_err(model, ref):
-    """``(of max, elementwise)``: max over parameters of max|a - b| /
-    max|b| (the error against each tensor's largest entry, the measure
-    the check holds), and max |a - b| / max(|b|, 1e-6) over every element
-    (the JAX dry run's, __graft_entry__.py:233-237, printed beside it; near
-    zero it divides rounding by the element itself)."""
-    pairs = [(a.detach(), b.detach()) for a, b in
-             zip(model.parameters(), ref.parameters())]
-    of_max = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
-    elem = max(float(((a - b).abs() / b.abs().clamp(min=1e-6)).max())
-               for a, b in pairs)
-    return of_max, elem
-
-
 def param_sha(model) -> str:
     import hashlib
     h = hashlib.sha256()
@@ -3540,117 +3567,128 @@ def reference_steps(dev, batches, atom_messages=False):
                                                        make_loss_fn)
     ref = par_model(dev, atom_messages)
     step = TrainStep(ref, *sgd(ref), make_loss_fn(ref.cfg))
-    out = [step(batch_tensors(b, dev)) for b in batches[:PAR_STEPS]]
+    out = [step(batch_tensors(b, dev) if hasattr(b, "graph_arrays") else b)
+           for b in batches[:PAR_STEPS]]
     return ref, [(float(l), float(g)) for l, g in out]
 
 
-def synced_ms(fn, reps=20) -> float:
-    """Median host-clock ms of ``fn()`` ended by a device sync."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return float(np.median(times))
-
-
-def rank_dp(dev, rank, out):
-    """dp at 2 ranks: PAR_STEPS steps on the first training batches, each
-    rank one micro-batch of 25 of each batch of 50, against one rank on
-    the batches of 50; then a cached dp epoch's steps/s."""
+def rank_dp(dev, rank, out, n=2):
+    """dp at ``n`` ranks: PAR_STEPS steps on the first training batches,
+    each rank one micro-batch of 25 of each batch of 25 n, against one
+    rank on the batches of 25 n, run twice from the seed (both runs'
+    parameter SHA-256); then a cached dp epoch's steps/s and the step's
+    gradient all-reduce alone."""
+    from polymer_chemprop_tpu_torch import multichip as mc
     from polymer_chemprop_tpu_torch.parallel import (make_dp_train_step,
                                                      make_mesh)
+    from polymer_chemprop_tpu_torch.parallel.mesh import all_reduce_sum
     from polymer_chemprop_tpu_torch.train.step import batch_tensors
-    mesh = make_mesh(2, ("dp",))
-    micro, loader = par_first(25, 2 * PAR_STEPS)
-    model = par_model(dev)
-    step = make_dp_train_step(model, *sgd(model), mesh)
-    out["dp_steps"] = [
-        [float(x) for x in step([batch_tensors(micro[2 * k + rank], dev)])]
-        for k in range(PAR_STEPS)]
-    out["dp_sha"] = param_sha(model)
+    mesh = make_mesh(n, ("dp",))
+    micro = par_first(25, n * PAR_STEPS)[0]
+    shas = []
+    for _ in range(2):
+        model = par_model(dev)
+        step = make_dp_train_step(model, *sgd(model), mesh)
+        out["dp_steps"] = [
+            [float(x) for x in step([batch_tensors(micro[n * k + rank],
+                                                   dev)])]
+            for k in range(PAR_STEPS)]
+        shas.append(param_sha(model))
+    out["dp_sha"], out["dp_sha_repeat"] = shas
     if rank == 0:
         ref, out["dp_ref_steps"] = reference_steps(dev, par_first(
-            50, PAR_STEPS)[0])
-        out["dp_rel_err"] = param_rel_err(model, ref)
-    # a cached epoch: the first featurizes and warms up
-    for epoch in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n = 0
-        for b in loader.iter_rank(rank, 2):
-            step([batch_tensors(b, dev)])
-            n += 1
-        torch.cuda.synchronize()
-        out["dp_epoch"] = (n, time.perf_counter() - t0)
+            25 * n, PAR_STEPS)[0])
+        out["dp_rel_err"] = mc.param_errors(model.parameters(),
+                                            ref.parameters())
+    # a cached epoch at batch 50, a micro-batch of ceil(50 / n) a rank (the
+    # trainer's split), and on one card (rank 0, the others waiting)
+    loader = par_loader(math.ceil(50 / n))
+    out["dp_epoch"] = cached_epoch(
+        lambda: loader.iter_rank(rank, n),
+        lambda b: step([batch_tensors(b, dev)]))
+    if rank == 0:
+        from polymer_chemprop_tpu_torch.train.step import (TrainStep,
+                                                           make_loss_fn)
+        one = TrainStep(ref, *sgd(ref), make_loss_fn(ref.cfg))
+        out["one_card_epoch"] = cached_epoch(
+            par_loader(50).__iter__, lambda b: one(batch_tensors(b, dev)))
     # the step's gradient all-reduce alone: every parameter and the loss
-    from polymer_chemprop_tpu_torch.parallel.mesh import all_reduce_sum
     flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()]
                      + [torch.zeros(1, device=dev)])
-    out["allreduce"] = (flat.numel(), synced_ms(
-        lambda: all_reduce_sum(flat, mesh.group("dp"))))
+
+    def reduce():
+        all_reduce_sum(flat, mesh.group("dp"))
+
+    out["allreduce"] = (flat.numel(),
+                        mc.synced_ms(reduce, PAR_DEVICE, 20, warm=3),
+                        mc.back_to_back_ms(reduce, PAR_DEVICE))
 
 
-def rank_gp_epoch(dev, rank, out):
-    """A cached gp epoch (ep 2, the strip exchange) on regression.csv's
+def cached_epoch(batches, step):
+    """``(steps, seconds)`` of the second of two epochs of ``step`` over
+    ``batches()`` (the first featurizes and warms up), synced."""
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = 0
+        for b in batches():
+            step(b)
+            steps += 1
+        torch.cuda.synchronize()
+    return steps, time.perf_counter() - t0
+
+
+def rank_gp_epoch(dev, rank, out, n=2):
+    """A cached gp epoch (ep ``n``, the strip exchange) on regression.csv's
     batches of 50, host partitioning included."""
     from polymer_chemprop_tpu_torch.parallel import (
         build_edge_shards_halo_dp, make_halo_dp_train_step, make_mesh)
     from polymer_chemprop_tpu_torch.train.step import batch_pytree
-    mesh = make_mesh(2, ("dp", "ep"), shape=(1, 2))
+    mesh = make_mesh(n, ("dp", "ep"), shape=(1, n))
     loader = par_loader(50, sorted_aux=False)
     model = par_model(dev)
     step = make_halo_dp_train_step(model, *sgd(model), mesh,
                                    overlap=True)
     aw = (loader.estimated_pad_atoms() + 7) // 8 * 8
+
     def run(b):
         t = batch_pytree(b)
-        sh, rep = build_edge_shards_halo_dp([t["graphs"]], 2, aw)
+        sh, rep = build_edge_shards_halo_dp([t["graphs"]], n, aw)
         step(sh, rep, t["targets"][None], t["mask"][None],
              t["weights"][None])
 
-    for epoch in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n = 0
-        for b in loader:
-            run(b)
-            n += 1
-        torch.cuda.synchronize()
-        out["gp_epoch"] = (n, time.perf_counter() - t0)
+    out["gp_epoch"] = cached_epoch(loader.__iter__, run)
     # one more step under the profiler: the operators it ran
     from torch.profiler import ProfilerActivity, profile
+    b = next(iter(loader))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         run(b)
     out["gp_index_add"] = sum(e.count for e in prof.key_averages()
                               if "index_add" in e.key)
 
 
-def rank_forwards(dev, rank, out, arrays):
-    """The four edge-parallel forwards at ep 2 on the bench batch against
-    the single-device encoder; the halo exchange's ms per layer."""
+def rank_forwards(dev, rank, out, arrays, n=2):
+    """The four edge-parallel forwards at ep ``n`` on the bench batch
+    against the single-device encoder; the halo exchange's ms per
+    layer."""
     from polymer_chemprop_tpu_torch.models.encoder import batch_to_tensors
     from polymer_chemprop_tpu_torch import parallel as tpar
-    from polymer_chemprop_tpu_torch.parallel import partition, mesh as pm
+    from polymer_chemprop_tpu_torch.multichip import exchange_ms
     from polymer_chemprop_tpu_torch.ops.sorted_aux import sorted_batch
     enc = par_model(dev).encoders[0]
     cfg = enc.cfg
     single = sorted_batch(arrays)
-    mesh = tpar.make_mesh(2, ("ep",))
+    mesh = tpar.make_mesh(n, ("ep",))
     with torch.no_grad():
         want = enc(batch_to_tensors(single, dev))
         got = {}
-        sh, rep = tpar.build_edge_shards(arrays, 2)
+        sh, rep = tpar.build_edge_shards(arrays, n)
         got["psum"] = tpar.make_edge_parallel_forward(cfg, mesh)(enc, sh,
                                                                  rep)
-        sh, rep = tpar.build_edge_shards_halo(arrays, 2)
+        sh, rep = tpar.build_edge_shards_halo(arrays, n)
         got["halo"] = tpar.make_edge_parallel_forward_halo(cfg, mesh)(
             enc, sh, rep)
-        shb, repb = tpar.build_edge_shards_halo_band(arrays, 2)
+        shb, repb = tpar.build_edge_shards_halo_band(arrays, n)
         got["band"] = tpar.make_edge_parallel_forward_halo_band(cfg, mesh)(
             enc, shb, repb)
         sw = tpar.halo_strip_width(sh)
@@ -3664,20 +3702,20 @@ def rank_forwards(dev, rank, out, arrays):
                                    .max())
     # the exchange alone at the bench window: a layer's whole-window
     # combine, and its strip form (post, then wait)
-    t = partition._prepare_halo(partition._take(sh, rank), rep, dev)
-    Aw = t["f_atoms_win"].shape[0]
-    partial = torch.randn((Aw, HIDDEN), device=dev)
-    out["halo_ms"] = synced_ms(lambda: partition._HaloCombineFn.apply(
-        partial, mesh, "ep", t["off_prev"], t["off_next"]))
-    out["strip_ms"] = synced_ms(lambda: pm.exchange(
-        mesh, "ep", partial[:sw], partial[:sw]).wait())
-    out["window"] = (Aw, sw, int(sh["f_bonds"].shape[1]))
+    ex = exchange_ms(sh, rep, mesh, "ep", HIDDEN, dev)
+    out["halo_ms"], out["strip_ms"] = ex["whole_ms"], ex["strip_ms"]
+    out["halo_ms_b2b"] = ex["whole_ms_back_to_back"]
+    out["strip_ms_b2b"] = ex["strip_ms_back_to_back"]
+    out["window"] = (ex["window"], ex["strip_width"],
+                     int(sh["f_bonds"].shape[1]))
 
 
 def rank_2d(dev, rank, out):
     """The 2-D halo step (dp 2 x ep 2) with bond and atom messages:
     PAR_STEPS steps, each on two batches of 50 (one a dp row), against one
-    rank on the batches of 100."""
+    rank on the batches of 100, each run twice from the seed (both runs'
+    parameter SHA-256)."""
+    from polymer_chemprop_tpu_torch.multichip import param_errors
     from polymer_chemprop_tpu_torch.parallel import (
         build_edge_shards_halo_dp, make_halo_dp_train_step, make_mesh)
     from polymer_chemprop_tpu_torch.train.step import batch_pytree
@@ -3687,28 +3725,105 @@ def rank_2d(dev, rank, out):
     refs = par_first(100, PAR_STEPS)[0] if rank == 0 else None
     for am in (False, True):
         key = "atom_messages" if am else "bonds"
-        model = par_model(dev, am)
-        step = make_halo_dp_train_step(model, *sgd(model), mesh)
-        steps = []
-        for k in range(PAR_STEPS):
-            trees = [batch_pytree(b) for b in batches[2 * k:2 * k + 2]]
-            sh, rep = build_edge_shards_halo_dp([t["graphs"] for t in trees],
-                                                2, aw)
-            stack = lambda f: np.stack([t[f] for t in trees])
-            steps.append([float(x) for x in step(
-                sh, rep, stack("targets"), stack("mask"), stack("weights"))])
+        shas = []
+        for _ in range(2):
+            model = par_model(dev, am)
+            step = make_halo_dp_train_step(model, *sgd(model), mesh)
+            steps = []
+            for k in range(PAR_STEPS):
+                trees = [batch_pytree(b) for b in batches[2 * k:2 * k + 2]]
+                sh, rep = build_edge_shards_halo_dp(
+                    [t["graphs"] for t in trees], 2, aw)
+                stack = lambda f: np.stack([t[f] for t in trees])
+                steps.append([float(x) for x in step(
+                    sh, rep, stack("targets"), stack("mask"),
+                    stack("weights"))])
+            shas.append(param_sha(model))
         out[f"{key}_steps"] = steps
-        out[f"{key}_sha"] = param_sha(model)
+        out[f"{key}_sha"], out[f"{key}_sha_repeat"] = shas
         if rank == 0:
             ref, out[f"{key}_ref_steps"] = reference_steps(dev, refs, am)
-            out[f"{key}_rel_err"] = param_rel_err(model, ref)
+            out[f"{key}_rel_err"] = param_errors(model.parameters(),
+                                                 ref.parameters())
+
+
+def rank_bench_steps(dev, rank, out, arrays, n):
+    """The bench batch's training steps at ``n`` ranks: the 1-D halo step
+    at ep ``n`` on the whole batch, and the 2-D step (dp 2 x ep n/2), each
+    dp row on one half (512 molecules); PAR_STEPS SGD steps each, run
+    twice from the seed (both runs' parameter SHA-256), against one rank's
+    steps on the whole batch (the loss of either is the masked mean over
+    all 1,024 molecules). Then each step's synced median ms at ``n`` ranks
+    (each call builds its shard's CSR on the host and copies the shard),
+    and on rank 0 one card's step on the whole batch (each call copies the
+    sorted batch); and the real bonds of each ep-``n`` shard."""
+    from polymer_chemprop_tpu_torch.features import mol2graph
+    from polymer_chemprop_tpu_torch.multichip import param_errors, synced_ms
+    from polymer_chemprop_tpu_torch.ops.sorted_aux import sorted_batch
+    from polymer_chemprop_tpu_torch.parallel import (
+        build_edge_shards_halo, build_edge_shards_halo_dp,
+        make_halo_dp_train_step, make_halo_train_step, make_mesh)
+    from polymer_chemprop_tpu_torch.train.step import (TrainStep,
+                                                       make_loss_fn,
+                                                       pytree_tensors)
+    M = arrays["degree_of_polym"].shape[0]
+    targets = np.random.default_rng(SEED).normal(size=(M, 1)).astype(
+        np.float32)
+    ones = np.ones_like(targets)
+    smiles = bench_smiles(M)
+    halves = [mol2graph(smiles[:M // 2]), mol2graph(smiles[M // 2:])]
+    pads = dict(pad_atoms=max(g.f_atoms.shape[0] for g in halves),
+                pad_bonds=max(g.f_bonds.shape[0] for g in halves),
+                pad_mols=M // 2)
+    halves = [mol2graph(smiles[:M // 2], **pads).arrays(),
+              mol2graph(smiles[M // 2:], **pads).arrays()]
+    n_ep = n // 2
+    aw = max(build_edge_shards_halo(h, n_ep)[0]["f_atoms_win"].shape[1]
+             for h in halves)
+    sh2, rep2 = build_edge_shards_halo_dp(halves, n_ep, aw)
+    t2, m2 = targets.reshape(2, M // 2, 1), ones.reshape(2, M // 2, 1)
+    sh1, rep1 = build_edge_shards_halo(arrays, n)
+    out["bench_real_bonds"] = [
+        int(k) for k in (np.abs(sh1["f_bonds"]).sum(-1) > 0).sum(1)]
+    mesh1 = make_mesh(n, ("ep",))
+    mesh2 = make_mesh(n, ("dp", "ep"), shape=(2, n_ep))
+    params = {}
+    for key in ("halo", "2d"):
+        shas = []
+        for _ in range(2):
+            model = par_model(dev)
+            if key == "halo":
+                step = make_halo_train_step(model, *sgd(model), mesh1)
+                call = lambda: step(sh1, rep1, targets, ones, ones)
+            else:
+                step = make_halo_dp_train_step(model, *sgd(model), mesh2)
+                call = lambda: step(sh2, rep2, t2, m2, m2)
+            steps = [[float(x) for x in call()] for _ in range(PAR_STEPS)]
+            shas.append(param_sha(model))
+        out[f"bench_{key}_steps"] = steps
+        out[f"bench_{key}_sha"], out[f"bench_{key}_sha_repeat"] = shas
+        params[key] = [p.detach().clone() for p in model.parameters()]
+        torch.distributed.barrier()
+        out[f"bench_{key}_ms"] = synced_ms(call, PAR_DEVICE, 10, warm=2)
+    if rank == 0:
+        batch = {"graphs": [sorted_batch(arrays)], "targets": targets,
+                 "mask": ones, "weights": ones}
+        ref, out["bench_ref_steps"] = reference_steps(
+            dev, [pytree_tensors(batch, dev)] * PAR_STEPS)
+        for key in ("halo", "2d"):
+            out[f"bench_{key}_rel_err"] = param_errors(params[key],
+                                                       ref.parameters())
+        one = TrainStep(ref, *sgd(ref), make_loss_fn(ref.cfg))
+        out["bench_one_card_ms"] = synced_ms(
+            lambda: one(pytree_tensors(batch, dev)), PAR_DEVICE, 10, warm=2)
 
 
 def rank_main(argv) -> int:
-    """One rank of a phase-10 launch: ``chip_smoke.py --parallel-rank TASK
-    OUT_DIR [cli arguments]`` under torchrun. Writes its results and its
-    kernel launch counts (all of them: this process runs the main path
-    only) to ``OUT_DIR/rank<r>.json``."""
+    """One rank of a phase-10 or four-card launch: ``chip_smoke.py
+    --parallel-rank TASK OUT_DIR [cli arguments]`` under torchrun. Writes
+    its results, its backend and card, and its kernel launch counts (all
+    of them: this process runs the main path only) to
+    ``OUT_DIR/rank<r>.json``."""
     from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
     from polymer_chemprop_tpu_torch.parallel import initialize_multihost
     from polymer_chemprop_tpu_torch.parallel.mesh import world
@@ -3725,15 +3840,22 @@ def rank_main(argv) -> int:
         rank = int(os.environ["RANK"])
     else:
         out["backend"] = initialize_multihost(device=PAR_DEVICE)
-        rank, _ = world()
+        rank, n = world()
         dev = rank_device(PAR_DEVICE)
+        out["device"] = str(dev)
         bm.reset_launch_counts()
+        arrays = dict(np.load(os.path.join(OUT_DIR, "bench_arrays.npz")))
         if task == "ranks2":
-            arrays = dict(np.load(os.path.join(OUT_DIR, "bench_arrays.npz")))
             rank_dp(dev, rank, out)
             rank_forwards(dev, rank, out, arrays)
             rank_gp_epoch(dev, rank, out)
-        else:
+        elif task == "ranks4":
+            rank_2d(dev, rank, out)
+        else:                               # "cards": one rank a card
+            rank_dp(dev, rank, out, n)
+            rank_forwards(dev, rank, out, arrays, n)
+            rank_bench_steps(dev, rank, out, arrays, n)
+            rank_gp_epoch(dev, rank, out, n)
             rank_2d(dev, rank, out)
         torch.distributed.destroy_process_group()
     out["launches"] = bm.launch_counts()
@@ -3742,24 +3864,37 @@ def rank_main(argv) -> int:
     return 0
 
 
-def torchrun(n, task, out_dir, *args):
-    """Start ``n`` ranks of ``task`` with ``torchrun --standalone``."""
+def torchrun(n, out_dir, *argv, env=None):
+    """Start ``n`` ranks of ``argv`` (a script and its arguments, or ``-m``
+    and a module) with ``torchrun --standalone``, output to
+    ``out_dir/log.txt``; ``env`` adds to the environment."""
     os.makedirs(out_dir, exist_ok=True)
     log_file = open(os.path.join(out_dir, "log.txt"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", str(n), os.path.join(ROOT, "chip_smoke.py"),
-         "--parallel-rank", task, out_dir, *args],
-        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=ROOT),
+         "--nproc_per_node", str(n), *argv],
+        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=ROOT,
+                           **(env or {})),
         stdout=log_file, stderr=subprocess.STDOUT)
     proc.log_file = log_file
     proc.out_dir, proc.n = out_dir, n
     return proc
 
 
-def rank_results(proc):
-    """Wait for a launch; its ranks' results, rank order. A failed launch
-    prints its log's tail and raises."""
+def rank_task(n, task, out_dir, *args):
+    """``n`` ranks of this script's ``task`` (:func:`rank_main`)."""
+    return torchrun(n, out_dir, os.path.join(ROOT, "chip_smoke.py"),
+                    "--parallel-rank", task, out_dir, *args)
+
+
+def multichip_launch(n, out_dir, env=None):
+    """``n`` ranks of ``polymer_chemprop_tpu_torch.multichip``."""
+    return torchrun(n, out_dir, "-m", "polymer_chemprop_tpu_torch.multichip",
+                    "--out", os.path.join(out_dir, "summary.json"), env=env)
+
+
+def launch_done(proc):
+    """Wait for a launch; a failed one prints its log's tail and raises."""
     try:
         rc = proc.wait(timeout=PAR_TIMEOUT)
     except subprocess.TimeoutExpired:
@@ -3772,11 +3907,83 @@ def rank_results(proc):
             log(f.read()[-6000:])
         raise RuntimeError(f"chip_smoke: the launch in {proc.out_dir} "
                            f"failed ({rc})")
+
+
+def rank_results(proc):
+    """Wait for a launch; its ranks' results, rank order."""
+    launch_done(proc)
     results = []
     for r in range(proc.n):
         with open(os.path.join(proc.out_dir, f"rank{r}.json")) as f:
             results.append(json.load(f))
     return results
+
+
+def placement(n, one_card):
+    """``(backend, devices, words)`` that ``n`` ranks must report: all on
+    the one card, so gloo by the backend rule, or one a card, so NCCL on
+    cuda:0 to cuda:n-1 (a rehearsal on the CPU: gloo, every rank on the
+    CPU); the devices sorted."""
+    if PAR_DEVICE != "cuda":
+        backend, devices = "gloo", ["cpu"] * n
+    elif one_card:
+        backend, devices = "gloo", ["cuda:0"] * n
+    else:
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(n)]
+    return backend, devices, (f"{n} ranks sharing one card" if one_card
+                              else f"{n} cards, one rank a card")
+
+
+def multichip_summary(proc, one_card):
+    """Wait for a ``multichip`` launch; its summary, after the checks that
+    every rank took the backend and card of its :func:`placement`."""
+    backend, expect, what = placement(proc.n, one_card)
+    launch_done(proc)
+    with open(os.path.join(proc.out_dir, "summary.json")) as f:
+        summary = json.load(f)
+    with open(os.path.join(proc.out_dir, "log.txt")) as f:
+        # NCCL_DEBUG=INFO names the transport of every channel it sets up
+        via = sorted(set(re.findall(r" via (\S+)", f.read())))
+    if via:
+        log(f"[parallel] NCCL's channels at {proc.n} ranks go via "
+            f"{', '.join(via)}")
+    ranks = summary["ranks"]
+    devices = [r["device"] for r in ranks]
+    check(summary["ok"] and len(ranks) == proc.n,
+          f"multichip.py at {proc.n} ranks ({what})")
+    check(all(r["backend"] == backend for r in ranks)
+          and sorted(devices) == expect,
+          f"multichip.py ranks must take {backend} on {expect} ({what}): "
+          f"{ranks}")
+    log(f"[parallel] multichip.py at {proc.n} ranks, {what}: every check "
+        f"passed ({', '.join(summary['checks'])}); rank devices {devices}")
+    log(f"[parallel] multichip.py {proc.n} ranks ({backend}; synced, back "
+        f"to back): halo exchange a layer at the bench-scale window "
+        f"(Aw={summary['atom_window']}, H={summary['bench_hidden']}, "
+        f"{summary['bench_bonds_per_shard']} bond rows a shard, of them "
+        f"real {summary['bench_real_bonds_per_shard']}): "
+        f"whole window {summary['halo_exchange_ms_per_layer']:.4f}, "
+        f"{summary['halo_exchange_ms_per_layer_back_to_back']:.4f} ms, "
+        f"strips of {summary['bench_strip_width']} rows "
+        f"{summary['strip_exchange_ms_per_layer']:.4f}, "
+        f"{summary['strip_exchange_ms_per_layer_back_to_back']:.4f} ms; "
+        f"gradient all-reduce ({summary['dp_allreduce_floats']} floats) "
+        f"{summary['dp_allreduce_ms']:.4f}, "
+        f"{summary['dp_allreduce_ms_back_to_back']:.4f} ms; the bench-scale "
+        f"gp step "
+        f"{summary['bench_gp_step_ms']:.3f} ms at {proc.n} ranks, one card "
+        f"{summary['bench_single_step_ms']:.3f} ms; loss "
+        f"{summary['bench_halo_loss']:.6f} (one card "
+        f"{summary['bench_single_loss']:.6f}, elementwise param rel err "
+        f"{summary['bench_max_param_rel_err']:.2e}); init_process_group "
+        f"{summary['init_ms']:.0f} ms, first dp step "
+        f"{summary['dp_first_step_ms']:.0f} ms, first halo step "
+        f"{summary['halo_first_step_ms']:.0f} ms"
+        + (f", first 2-D step (its mesh lines' groups new) "
+           f"{summary['2d_unoverlapped_first_step_ms']:.0f} ms, the next "
+           f"{summary['2d_overlap_first_step_ms']:.0f} ms"
+           if "mesh_2d" in summary else ""))
+    return summary
 
 
 def host_partition_ms(gb, reps=5) -> float:
@@ -3800,14 +4007,14 @@ def host_partition_ms(gb, reps=5) -> float:
     return float(np.median(times))
 
 
-def shard_kernel_checks(bm, results, dev, gb):
+def shard_kernel_checks(bm, results, dev, gb, n=2):
     """Rows 3, 3a and 3b at the shapes a shard of the bench batch gives
-    them (ep 2, shard 0's window CSR) against their plain versions: the
+    them (ep ``n``, shard 0's window CSR) against their plain versions: the
     aggregation, the atom_messages neighbour sum and readout over the
     window table, and the gather's VJP (the gather entry over bond rows
     with index srev). Not counted: the counts are reset after."""
     from polymer_chemprop_tpu_torch.parallel import partition
-    sh, rep = partition.build_edge_shards_halo(gb.arrays(), 2)
+    sh, rep = partition.build_edge_shards_halo(gb.arrays(), n)
     t = partition._prepare_halo(partition._take(sh, 0), rep, dev)
     rp, w, src, srev = t["rowptr"], t["w_sorted"], t["src_sorted"], t["srev"]
     gen = torch.Generator(dev).manual_seed(SEED)
@@ -3828,7 +4035,7 @@ def shard_kernel_checks(bm, results, dev, gb):
     torch.cuda.synchronize()
     for name, what, got, plain in cases:
         err, tol = (got - plain).abs().max().item(), kernel_tolerance(plain)
-        log(f"[parallel] {name} {what} at the shard shape B={B} "
+        log(f"[parallel] {name} {what} at the shard shape (ep {n}) B={B} "
             f"A={A1} H={HIDDEN}: max_abs_err {err:.3e} (tol {tol:.3e})")
         check(err <= tol, f"{name} {what} disagrees with its plain version "
                           "at the shard shape")
@@ -3836,11 +4043,176 @@ def shard_kernel_checks(bm, results, dev, gb):
     bm.reset_launch_counts()
 
 
+def check_ranks(rs, tag, one_card, card):
+    """Check and log one launch's rank results, whichever parts its task
+    ran (:func:`rank_main`), for phase 10 (``one_card``) and the four-card
+    phase alike: every rank's backend and card (:func:`placement`); each
+    sharded step against one card (loss, and dp's gradient norm, within
+    1e-4 of its size; parameters within 1e-4 of each tensor's largest
+    entry, the JAX dry run's elementwise measure printed beside it); both
+    runs of each and every rank one parameter SHA-256; the forwards
+    (rtol 1e-4, atol 1e-5; strips against the whole window 1e-6); no
+    ``index_add_`` in a gp step; then the timings."""
+    r0, n = rs[0], len(rs)
+    backend, devices, where = placement(n, one_card)
+    check(all(r["backend"] == backend for r in rs)
+          and sorted(r["device"] for r in rs) == devices,
+          f"{where}: every rank must take {backend} on {devices}: "
+          f"{[(r['backend'], r['device']) for r in rs]}")
+    steps = [("dp", "dp", f"dp {n} ranks, a micro-batch of 25 a rank "
+                          f"(one card at batch {25 * n})"),
+             ("bench_halo", "bench", f"bench batch halo step ep {n}"),
+             ("bench_2d", "bench", f"bench batch 2-D step dp 2 x ep {n // 2}"),
+             ("bonds", "bonds", "2-D halo step (dp 2 x ep 2) bonds, training "
+                                "batches (one card at batch 100)"),
+             ("atom_messages", "atom_messages", "2-D halo step (dp 2 x ep 2) "
+                                                "atom_messages, training "
+                                                "batches")]
+    for key, ref, what in steps:
+        if f"{key}_steps" not in r0:
+            continue
+        got, want = r0[f"{key}_steps"], r0[f"{ref}_ref_steps"]
+        for (l, g), (rl, rg) in zip(got, want):
+            check(abs(l - rl) <= 1e-4 * abs(rl) and (
+                key != "dp" or abs(g - rg) <= 1e-4 * abs(rg)),
+                f"{what}: loss or gradient norm against one card")
+        of_max, elem = r0[f"{key}_rel_err"]
+        shas = ({r[f"{key}_sha"] for r in rs}
+                | {r[f"{key}_sha_repeat"] for r in rs})
+        log(f"{tag} {what}, {where} ({backend}), {PAR_STEPS} steps against "
+            f"one card: losses {[round(x[0], 7) for x in got]}, one card "
+            f"{[round(x[0], 7) for x in want]}; max param rel err "
+            f"{of_max:.3e} of each tensor's max (elementwise {elem:.3e}); "
+            f"two runs from one seed: parameters' SHA-256 "
+            f"{sorted(shas)[0][:16]}" + (" both times, on every rank"
+                                         if len(shas) == 1
+                                         else f": {len(shas)} different"))
+        check(of_max <= 1e-4, f"{what}: parameters against one card")
+        check(len(shas) == 1, f"two {backend} runs of {what} from one seed "
+                              "differ, or the ranks do")
+    if "forwards" in r0:
+        for name, (err, ok) in r0["forwards"].items():
+            log(f"{tag} forward {name} ep {n} on the bench batch: max abs "
+                f"err {err:.3e} against one card")
+            check(ok and all(r["forwards"][name][1] for r in rs),
+                  f"forward {name} outside rtol 1e-4 atol 1e-5")
+        log(f"{tag} overlapped against whole-window exchange: "
+            f"{r0['overlap_vs_halo']:.3e}")
+        check(r0["overlap_vs_halo"] <= 1e-6, "overlap is not row-exact")
+        Aw, sw, Bs = r0["window"]
+        log(f"{tag} halo exchange per layer at the bench window ep {n} "
+            f"(Aw={Aw}, H={HIDDEN}, {Bs} bonds a shard), {where} "
+            f"({backend}; synced, back to back): whole window "
+            f"{r0['halo_ms']:.4f}, {r0['halo_ms_b2b']:.4f} ms, strips of "
+            f"{sw} rows {r0['strip_ms']:.4f}, {r0['strip_ms_b2b']:.4f} ms "
+            f"(every rank, synced: {[round(r['halo_ms'], 4) for r in rs]} / "
+            f"{[round(r['strip_ms'], 4) for r in rs]}) on {card}")
+    if "bench_halo_ms" in r0:
+        log(f"{tag} bench batch training step (1,024 molecules, "
+            f"{r0['bench_real_bonds']} real bonds a shard at ep {n}; synced "
+            f"median of 10): halo ep {n} {r0['bench_halo_ms']:.3f} ms, 2-D "
+            f"dp 2 x ep {n // 2} {r0['bench_2d_ms']:.3f} ms at {where} "
+            f"({backend}; every rank: "
+            f"{[round(r['bench_halo_ms'], 3) for r in rs]} / "
+            f"{[round(r['bench_2d_ms'], 3) for r in rs]}); one card "
+            f"{r0['bench_one_card_ms']:.3f} ms, on {card}")
+    if "allreduce" in r0:
+        floats, ms, b2b = r0["allreduce"]
+        log(f"{tag} gradient all-reduce of a dp step ({floats} floats: "
+            f"every parameter and the loss), {where} ({backend}): "
+            f"{ms:.4f} ms synced, {b2b:.4f} ms back to back (every rank, "
+            f"synced: {[round(r['allreduce'][1], 4) for r in rs]}) on "
+            f"{card}")
+    for key, what in (("dp_epoch", f"dp epoch, {where}, a micro-batch of "
+                                   f"{math.ceil(50 / n)} a rank"),
+                      ("gp_epoch", f"gp epoch, {where}, ep {n}, the strip "
+                                   "exchange"),
+                      ("one_card_epoch", "epoch on one card, the other "
+                                         "ranks waiting")):
+        if key in r0:
+            steps_, sec = r0[key]
+            log(f"{tag} cached {what} (batch 50): {steps_} steps in "
+                f"{1e3 * sec:.1f} ms ({steps_ / sec:.1f} steps/s) on {card}")
+    if "gp_index_add" in r0:
+        check(all(r["gp_index_add"] == 0 for r in rs),
+              "the gp step ran index_add_ on a card")
+        log(f"{tag} a gp step under the profiler: no index_add_ on any rank "
+            "(aggregation, its gather VJP and the molecule readout on rows "
+            "3, 3a, 3b)")
+
+
+CLI_ARGS = []         # further cli train flags (a rehearsal: a size, cpu)
+FELL_BACK = re.compile(r"graph_parallel: (\d+) of (\d+) batches fell back")
+
+
+def cli_argv(kind, save_dir, *flags):
+    """``cli train`` arguments: regression.csv, or the 200 copolymers with
+    targets (``kind`` "polymer"), PAR_EPOCHS epochs, seed SEED, then
+    ``flags``."""
+    data = os.path.join(ROOT, "tests", "data", "regression.csv")
+    if kind == "polymer":
+        data = os.path.join(OUT_DIR, "polymers_train.csv")
+        polymer_csv(data, with_target=True)
+    return ["--data_path", data, "--dataset_type", "regression",
+            "--save_dir", save_dir, "--epochs", str(PAR_EPOCHS), "--seed",
+            str(SEED), "--quiet", *CLI_ARGS, *flags] + (
+                ["--polymer"] if kind == "polymer" else [])
+
+
+def check_cli(proc, kind, flags, one_card, ref, tag, card,
+              ref_what="one card"):
+    """Wait for a ``cli train`` launch (its save dir ``proc.out_dir``);
+    check that its ranks took the backend and cards of their
+    :func:`placement`, trained in the mode ``flags`` asks for over all of
+    them, that no gp batch fell back to the single-device step (across
+    cards: not every one), and that its test score is within 1e-3 of
+    ``ref``, the same run on one card (``ref_what``). Returns the ranks'
+    results."""
+    res = rank_results(proc)
+    n = proc.n
+    backend, expect, where = placement(n, one_card)
+    d = proc.out_dir
+    with open(os.path.join(d, "log.txt")) as f:
+        devices = re.findall(rf"backend {backend} \(by rule\), device "
+                             r"(\S+)", f.read())
+    with open(os.path.join(d, "test_scores.csv")) as f:
+        score = float(next(csv.DictReader(f))["Mean rmse"])
+    with open(os.path.join(d, "verbose.log")) as f:
+        verbose = f.read()
+    what = f"cli train {kind} {' '.join(flags)}"
+    check(sorted(devices) == expect,
+          f"{what}: the ranks did not take {backend} on {expect} "
+          f"({devices})")
+    mode = "Data" if "--data_parallel" in flags else "Graph"
+    check(f"{mode}-parallel training" in verbose
+          and f"over {n} devices" in verbose,
+          f"{what} did not train in parallel")
+    fell = ""
+    if mode == "Graph":
+        fallen, total = map(int, FELL_BACK.search(verbose).groups())
+        check(fallen == 0 if one_card else fallen < total,
+              f"{what}: {fallen} of {total} batches fell back to the "
+              "single-device step")
+        fell = f", {fallen} of {total} batches fell back"
+    rel = abs(score - ref) / abs(ref)
+    log(f"{tag} {what} under torchrun ({where}, {backend}, {PAR_EPOCHS} "
+        f"epochs{fell}): test rmse {score:.6f}, {ref_what} {ref:.6f}, rel "
+        f"{rel:.2e} on {card}")
+    check(rel <= 1e-3, f"{what}: test score against one card")
+    return res
+
+
+def stop(procs) -> None:
+    """Kill whatever of ``procs`` still runs."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def parallel_path(card, dev, gb, results):
     """Phase 10: parallel/ under torchrun on the card (module docstring).
     Returns the ranks' kernel launches."""
-    import csv
-
     from polymer_chemprop_tpu_torch.config import parse_train_args
     from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
     from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
@@ -3862,125 +4234,122 @@ def parallel_path(card, dev, gb, results):
 
     try:
         # 1-2: dp, the forwards and the timings, two ranks alone on the card
-        procs.append(torchrun(2, "ranks2", os.path.join(out_dir, "ranks2")))
+        procs.append(rank_task(2, "ranks2", os.path.join(out_dir, "ranks2")))
         r2 = rank_results(procs[-1])
         tally(r2)
+        # the counterpart of the JAX dry run, alone on the card too
+        procs.append(multichip_launch(2, os.path.join(out_dir, "multichip")))
+        tally([multichip_summary(procs[-1], one_card=True)])
         # then, together (no timings among them): the 2-D step on four
         # ranks, and cli train under torchrun against one rank here
-        procs.append(torchrun(4, "ranks4", os.path.join(out_dir, "ranks4")))
+        procs.append(rank_task(4, "ranks4", os.path.join(out_dir, "ranks4")))
         ranks4 = procs[-1]
-        poly_csv = os.path.join(OUT_DIR, "polymers_train.csv")
-        polymer_csv(poly_csv, with_target=True)
-        data = {"regression": os.path.join(ROOT, "tests", "data",
-                                           "regression.csv"),
-                "polymer": poly_csv}
-
-        def argv(kind, save_dir):
-            return ["--data_path", data[kind], "--dataset_type",
-                    "regression", "--save_dir", save_dir, "--epochs",
-                    str(PAR_EPOCHS), "--hidden_size", str(HIDDEN),
-                    "--band_precision", "highest", "--seed", str(SEED),
-                    "--device", PAR_DEVICE, "--quiet"] + (
-                        ["--polymer"] if kind == "polymer" else [])
-
-        runs = {}
-        for kind in data:
+        same = ["--hidden_size", str(HIDDEN), "--band_precision", "highest",
+                "--device", PAR_DEVICE]
+        runs = []
+        for kind in ("regression", "polymer"):
             for flag in ("--data_parallel", "--graph_parallel"):
                 d = os.path.join(out_dir, f"cli_{kind}_{flag[2:]}")
-                procs.append(torchrun(2, "cli", d, *argv(kind, d), flag))
-                runs[(kind, flag)] = procs[-1]
-        single = {}
-        for kind in data:
-            d = os.path.join(out_dir, f"cli_{kind}_single")
-            single[kind] = cross_validate(parse_train_args(argv(kind, d)))[0]
+                procs.append(rank_task(2, "cli", d,
+                                       *cli_argv(kind, d, *same), flag))
+                runs.append((kind, [flag], procs[-1]))
+        single = {kind: cross_validate(parse_train_args(cli_argv(
+            kind, os.path.join(out_dir, f"cli_{kind}_single"), *same)))[0]
+            for kind in ("regression", "polymer")}
         r4 = rank_results(ranks4)
         tally(r4)
-        check(all(r["backend"] == "gloo" for r in r2 + r4),
-              "ranks sharing one card must take gloo")
-        for k in range(PAR_STEPS):
-            (l, g), (rl, rg) = r2[0]["dp_steps"][k], r2[0]["dp_ref_steps"][k]
-            log(f"[parallel] dp 2 ranks step {k}: loss {l:.7f} gnorm "
-                f"{g:.6f}; one rank {rl:.7f} / {rg:.6f}")
-            check(abs(l - rl) <= 1e-4 * abs(rl) and abs(g - rg)
-                  <= 1e-4 * abs(rg), "dp loss or gradient norm")
-        check(r2[0]["dp_sha"] == r2[1]["dp_sha"],
-              "dp parameters differ between the ranks")
-        of_max, elem = r2[0]["dp_rel_err"]
-        log(f"[parallel] dp parameters after {PAR_STEPS} steps against one "
-            f"rank: max rel err {of_max:.3e} of each tensor's max "
-            f"(elementwise {elem:.3e}); equal on both ranks bit for bit")
-        check(of_max <= 1e-4, "dp parameters")
-        for name, (err, ok) in r2[0]["forwards"].items():
-            log(f"[parallel] forward {name} ep 2 on the bench batch: max "
-                f"abs err {err:.3e} against one device")
-            check(ok and all(r["forwards"][name][1] for r in r2),
-                  f"forward {name} outside rtol 1e-4 atol 1e-5")
-        log(f"[parallel] overlapped against whole-window exchange: "
-            f"{r2[0]['overlap_vs_halo']:.3e}")
-        check(r2[0]["overlap_vs_halo"] <= 1e-6, "overlap is not row-exact")
-        for key in ("bonds", "atom_messages"):
-            for k in range(PAR_STEPS):
-                (l, _), (rl, _) = (r4[0][f"{key}_steps"][k],
-                                   r4[0][f"{key}_ref_steps"][k])
-                check(abs(l - rl) <= 1e-4 * abs(rl), f"2-D {key} loss")
-            check(len({r[f"{key}_sha"] for r in r4}) == 1,
-                  f"2-D {key} parameters differ between the ranks")
-            of_max, elem = r4[0][key + "_rel_err"]
-            log(f"[parallel] 2-D halo step (dp 2 x ep 2) {key}, "
-                f"{PAR_STEPS} steps against one rank: max param rel err "
-                f"{of_max:.3e} of each tensor's max (elementwise "
-                f"{elem:.3e}); losses "
-                f"{[round(s[0], 6) for s in r4[0][key + '_steps']]}")
-            check(of_max <= 1e-4, f"2-D {key} parameters")
-        n, s = r2[0]["dp_epoch"]
-        log(f"[parallel] cached dp epoch, 2 {PAR_CARD}: {n} steps in "
-            f"{1e3 * s:.1f} ms ({n / s:.1f} steps/s) on {card}")
-        check(all(r["gp_index_add"] == 0 for r in r2),
-              "the gp step ran index_add_ on the card")
-        log("[parallel] a gp step under the profiler: no index_add_ on "
-            "either rank (aggregation, its gather VJP and the molecule "
-            "readout on rows 3, 3a, 3b)")
-        n, s = r2[0]["gp_epoch"]
-        log(f"[parallel] cached gp epoch (ep 2, strip exchange), 2 "
-            f"{PAR_CARD}: {n} steps in {1e3 * s:.1f} ms ({n / s:.1f} "
-            f"steps/s) on {card}")
-        n, ms = r2[0]["allreduce"]
-        log(f"[parallel] gradient all-reduce of a dp step ({n} floats: "
-            f"every parameter and the loss), 2 {PAR_CARD} (gloo through "
-            f"host memory): {ms:.3f} ms (rank 1 {r2[1]['allreduce'][1]:.3f}) "
-            f"on {card}")
-        Aw, sw, Bs = r2[0]["window"]
-        log(f"[parallel] halo exchange per layer at the bench window "
-            f"(Aw={Aw}, H={HIDDEN}, {Bs} bonds a shard), 2 {PAR_CARD} "
-            f"(gloo through host memory): whole window "
-            f"{r2[0]['halo_ms']:.3f} ms, strips of {sw} rows "
-            f"{r2[0]['strip_ms']:.3f} ms (rank 0; rank 1 "
-            f"{r2[1]['halo_ms']:.3f} / {r2[1]['strip_ms']:.3f}) on {card}")
-
-        for (kind, flag), proc in runs.items():
-            res = rank_results(proc)
-            tally(res)
-            with open(os.path.join(proc.out_dir, "test_scores.csv")) as f:
-                score = float(next(csv.DictReader(f))["Mean rmse"])
-            with open(os.path.join(proc.out_dir, "verbose.log")) as f:
-                verbose = f.read()
-            mode = "Data" if flag == "--data_parallel" else "Graph"
-            check(f"{mode}-parallel training" in verbose
-                  and "over 2 devices" in verbose
-                  and "fallback" not in verbose,
-                  f"cli {kind} {flag} did not train in parallel")
-            rel = abs(score - single[kind]) / abs(single[kind])
-            log(f"[parallel] cli train {kind} {flag} under torchrun (2 "
-                f"{PAR_CARD}, {PAR_EPOCHS} epochs): test rmse {score:.6f}, "
-                f"one rank {single[kind]:.6f}, rel {rel:.2e}")
-            check(rel <= 1e-3, f"cli {kind} {flag} score")
+        check_ranks(r2, "[parallel]", True, card)
+        check_ranks(r4, "[parallel]", True, card)
+        for kind, flags, proc in runs:
+            tally(check_cli(proc, kind, flags, True, single[kind],
+                            "[parallel]", card))
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop(procs)
     log(f"[parallel] phase 10 launches {launches}, "
         f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# -- the four-card phase (--cards 4) ----------------------------------------
+
+CARD_PATH_KERNELS = ("band_rev_layer", "band_rev_bwd", "atom_readout",
+                     "atom_neighbor_sum_sorted", "src_readout_sorted",
+                     "molecule_readout_sorted")
+
+
+def four_card_path(card, dev, gb, results):
+    """``--cards 4``: parallel/ one rank a card over NCCL on CARDS cards
+    (module docstring). Returns the ranks' kernel launches."""
+    from polymer_chemprop_tpu_torch.config import parse_train_args
+    from polymer_chemprop_tpu_torch.ops import band_mpnn as bm
+    from polymer_chemprop_tpu_torch.train.cross_validate import cross_validate
+    t0 = time.perf_counter()
+    n = CARDS
+    found = torch.cuda.device_count()
+    if found < n:
+        raise RuntimeError(f"chip_smoke --cards {n}: this machine has "
+                           f"{found} CUDA devices")
+    for cmd in (["nvidia-smi", "topo", "-m"],
+                ["nvidia-smi", "nvlink", "--status", "-i", "0"]):
+        try:
+            got = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=60)
+            text = (got.stdout + got.stderr).rstrip()
+        except OSError as e:
+            text = str(e)
+        log(f"[cards] {' '.join(cmd)}:\n{text}")
+    shard_kernel_checks(bm, results, dev, gb, n)
+    out_dir = os.path.join(OUT_DIR, "cards")
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(OUT_DIR, "bench_arrays.npz"), **gb.arrays())
+    launches = dict.fromkeys(bm.launch_counts(), 0)
+    procs = []
+
+    def tally(res):
+        for r in res:
+            for k, v in r["launches"].items():
+                launches[k] += v
+
+    try:
+        for k in (n, 2):
+            procs.append(multichip_launch(
+                k, os.path.join(out_dir, f"multichip{k}"),
+                env={"NCCL_DEBUG": "INFO"} if k == n else None))
+            tally([multichip_summary(procs[-1], one_card=False)])
+        procs.append(rank_task(n, "cards", os.path.join(out_dir, "ranks")))
+        rs = rank_results(procs[-1])
+        tally(rs)
+        check_ranks(rs, "[cards]", False, card)
+        # cli train at the default band_precision "high" (compared by test
+        # score only): dp at batch 100 (25 a rank) and gp at ep 4 (batch
+        # 50) on both datasets, gp with --graph_parallel_dp 2 (two batches
+        # of 50 a step) on regression.csv; each against one card at the
+        # batch a step takes (for the 2-D run also its Noam horizon)
+        runs = [("regression", ["--data_parallel"], 100, 100),
+                ("regression", ["--graph_parallel"], 50, 50),
+                ("regression", ["--graph_parallel", "--graph_parallel_dp",
+                                "2"], 50, 100),
+                ("polymer", ["--data_parallel"], 100, 100),
+                ("polymer", ["--graph_parallel"], 50, 50)]
+        single = {}
+        for i, (kind, flags, batch, same) in enumerate(runs):
+            d = os.path.join(out_dir, f"cli_{i}_{kind}")
+            procs.append(rank_task(n, "cli", d, *cli_argv(
+                kind, d, "--batch_size", str(batch)), *flags))
+            if i == 0:
+                # one card, in this process, while the first launch runs
+                for key in sorted({(k, b) for k, _, _, b in runs}):
+                    sd = os.path.join(out_dir, f"cli_single_{key[0]}_"
+                                               f"{key[1]}")
+                    single[key] = cross_validate(parse_train_args(cli_argv(
+                        key[0], sd, "--batch_size", str(key[1]))))[0]
+            tally(check_cli(procs[-1], kind, flags + ["--batch_size",
+                                                      str(batch)],
+                            False, single[(kind, same)], "[cards]", card,
+                            f"one card at batch {same}"))
+    finally:
+        stop(procs)
+    log(f"[cards] launches {launches}, {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4882,7 +5251,12 @@ def bench_path(card, gb):
     return launches, tc_launches
 
 
-def main() -> int:
+def main(argv) -> int:
+    """The one-card run (no arguments), or ``--cards 4``: phases 1 and 2,
+    then the four-card phase."""
+    if argv not in ([], ["--cards", str(CARDS)]):
+        print(f"usage: chip_smoke.py [--cards {CARDS}]", file=sys.stderr)
+        return 2
     # the synthetic edge rules (as in the integration tests) sum to 0.5
     warnings.filterwarnings("ignore", message="sum of weights of incoming")
     if not torch.cuda.is_available():
@@ -4895,6 +5269,28 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_and_build()
     gb = bench_batch()
+    if argv:
+        results, B, A = kernel_phase(dev, gb)
+        launches = four_card_path(card, dev, gb, results)
+        check(all(launches[k] > 0 for k in CARD_PATH_KERNELS),
+              f"a kernel of the {CARDS}-card path never launched: "
+              f"{launches}")
+        # the probes' kernels (rows 8 and 10) are phase 6's alone
+        print_kernels(results, launches, skip=("band_ctrl", "fused_matmul"))
+    else:
+        results, B, A, launches = one_card_phases(card, dev, gb)
+        print_kernels(results, launches)
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
+        f"(kernel shape B={B} A={A} H={HIDDEN})")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def one_card_phases(card, dev, gb):
+    """Phases 1 (the [host] lines) to 15 on the one card: the kernel
+    results, the bench shape and every main path's launches."""
     host_phase(gb, card)
     results, B, A = kernel_phase(dev, gb)
     launches, tc_launches = main_path(card)
@@ -4926,6 +5322,13 @@ def main() -> int:
           f"the tensor-core stage never ran on a main path: {tc_launches}")
     for name, count in tc_launches.items():
         results[name]["tc_launches"] = count
+    return results, B, A, launches
+
+
+def print_kernels(results, launches, skip=()) -> None:
+    """The contract's ``kernels`` line: every kernel's numbers of this run
+    (but those in ``skip``), its launches those of the main paths (every
+    rank's)."""
     sources = {
         "band_rev_layer": ("polymer_chemprop_tpu_torch/csrc/band_rev_layer.cu",
                            "polymer_chemprop_tpu/ops/pallas_mpnn.py:1009"),
@@ -4957,6 +5360,8 @@ def main() -> int:
     }
     kernels = []
     for name, (source, replaces) in sources.items():
+        if name in skip:
+            continue
         r = results[name]
         entry = {
             "name": name, "route": "cuda", "source": source,
@@ -4988,16 +5393,10 @@ def main() -> int:
             # at the training batch, warm
             entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
-        f"(kernel shape B={B} A={A} H={HIDDEN})")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(rank_main(sys.argv[2:]))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

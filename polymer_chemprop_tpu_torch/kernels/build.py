@@ -17,6 +17,7 @@ machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -61,9 +62,18 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str] = KERNELS) -> float:
     """Compile every stale kernel library, one ``nvcc`` per source, all
     started together. Returns the wall seconds spent; raises with the
-    compiler's output when a build fails."""
+    compiler's output when a build fails. Processes that share the
+    checkout (the ranks of a launch, starting cold together) queue on one
+    lock file, so each library is built once and the others find it."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "kernels.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_stale(names)
+    return time.perf_counter() - t0
+
+
+def _build_stale(names: Iterable[str]) -> None:
     procs: List[tuple] = []
     for name in names:
         lib = library_path(name)
@@ -84,7 +94,6 @@ def build(names: Iterable[str] = KERNELS) -> float:
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:

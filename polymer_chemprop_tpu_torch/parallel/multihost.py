@@ -67,6 +67,19 @@ def pick_backend(device="cuda") -> str:
     return "gloo"
 
 
+def _check_nccl(device) -> None:
+    """Raise unless NCCL can run here: a CUDA device, and a card of its own
+    for every rank of this host. Nothing falls back to gloo."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"backend nccl needs CUDA devices, not {device!r}")
+    cards = torch.cuda.device_count()
+    if local_world_size() > cards:
+        raise ValueError(
+            f"backend nccl needs a card for each of the "
+            f"{local_world_size()} ranks of this host, which has {cards}: "
+            "NCCL refuses two ranks on one device (take gloo)")
+
+
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None,
@@ -79,8 +92,10 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     ``MASTER_ADDR:MASTER_PORT``; otherwise ``coordinator_address``
     ("host:port", rank 0's), ``num_processes`` and ``process_id`` say it.
     ``backend`` None takes :func:`pick_backend`'s choice. The choice is
-    logged and returned; a failure to start raises, nothing falls back.
-    A CUDA rank first selects its card (:func:`rank_device`)."""
+    logged and returned; a failure to start raises, nothing falls back:
+    NCCL (chosen or asked for) raises unless every rank of the host has a
+    card of its own. A CUDA rank first selects its card
+    (:func:`rank_device`)."""
     if dist.is_initialized():
         return dist.get_backend()
     n = num_processes if num_processes is not None else int(
@@ -90,6 +105,8 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     rank = process_id if process_id is not None else int(
         os.environ.get("RANK", "0"))
     chosen = backend or pick_backend(device)
+    if chosen == "nccl":
+        _check_nccl(device)
     dev = rank_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -98,8 +115,11 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     print(f"torch.distributed: rank {rank} of {n}, backend {chosen} "
           f"({'asked for' if backend else 'by rule'}), device {dev}",
           file=sys.stderr, flush=True)
+    # NCCL binds the group to this rank's card: its communicator starts
+    # here, and barrier() and the object collectives use this card
     dist.init_process_group(chosen, init_method=init, world_size=n,
-                            rank=rank)
+                            rank=rank,
+                            device_id=dev if chosen == "nccl" else None)
     return chosen
 
 

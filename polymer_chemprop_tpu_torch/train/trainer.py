@@ -390,6 +390,7 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
         gp_n_ep = n_dev // gp_dp
         gp_mesh = make_mesh(n_dev, ("dp", "ep"), shape=(gp_dp, gp_n_ep))
         gp_fallback_warned = False
+        gp_batches = [0, 0]     # loader batches: all, and fallen back
 
     try:
         task_names = get_task_names(
@@ -557,6 +558,7 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
             its sums run in a fixed order."""
             nonlocal gp_fallback_warned
             n_real = len(group)
+            gp_batches[0] += n_real
             group = group + [group[-1].masked_out()] * (gp_dp - n_real)
             trees = [batch_pytree(b) for b in group]
             aw = (train_loader.estimated_pad_atoms() + 7) // 8 * 8
@@ -571,6 +573,7 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
                     info(f"graph_parallel: single-device fallback for an "
                          f"unshardable batch ({exc})")
                     gp_fallback_warned = True
+                gp_batches[1] += n_real
                 for b in group[:n_real]:
                     loss, gnorm = run_step(
                         train_step, batch_tensors(b.sorted_layout(), device))
@@ -653,6 +656,10 @@ def run_training(cfg: TrainConfig, data: MoleculeDataset,
 
         if tb_writer is not None:
             tb_writer.close()
+        if gp_enabled:
+            info(f"graph_parallel: {gp_batches[1]} of {gp_batches[0]} "
+                 f"batches fell back to the single-device step")
+            gp_batches[:] = [0, 0]
         info(f"Model {model_idx} best validation {cfg.metric} = "
              f"{best_score:.6f} on epoch {best_epoch}")
         best_states.append(best_state)

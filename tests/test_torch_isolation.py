@@ -54,7 +54,7 @@ def test_importing_every_port_module_loads_no_jax():
                  "baselines", "baselines.pickles", "baselines.tree",
                  "baselines.forest", "baselines.svm", "baselines.linear",
                  "goldens", "eaip", "polymer_goldens",
-                 "probes.determinism_probe"):
+                 "probes.determinism_probe", "multichip"):
         assert f"polymer_chemprop_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -56,7 +56,7 @@ CONFIGS = {
 }
 
 WORKER = r'''
-import copy, os, pickle, sys
+import copy, hashlib, os, pickle, sys
 import numpy as np, torch
 sys.path.insert(0, REPO)
 from polymer_chemprop_tpu_torch import parallel as tpar
@@ -97,6 +97,13 @@ def with_aux(arrays):
     return sorted_batch(arrays)
 
 
+def sha(model):
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().numpy().tobytes())
+    return h.hexdigest()
+
+
 def batch(arrays, targets, aux=True):
     t = np.asarray(targets, np.float32).reshape(-1, 1)
     return {"graphs": [with_aux(arrays) if aux else arrays], "targets": t,
@@ -113,6 +120,13 @@ if size == 2:
     loss, gnorm = step(tpar.shard_batch(stacked, mesh, "dp", "cpu"))
     out["dp"] = (float(loss), float(gnorm), grads(model),
                  params_to_jax(model))
+    # the same step twice more from the seed: each run's SHA-256
+    out["dp_repeat"] = []
+    for _ in range(2):
+        model = model_of("bonds")
+        tpar.make_dp_train_step(model, *sgd(model), mesh)(
+            tpar.shard_batch(stacked, mesh, "dp", "cpu"))
+        out["dp_repeat"].append(sha(model))
 
     # the four edge-parallel forwards at ep 2
     model = model_of("bonds")
@@ -192,6 +206,13 @@ if size == 4:
             loss, _ = step(sh, rep, t, np.ones_like(t), np.ones_like(t))
             out[f"2d_{name}_{overlap}"] = (float(loss),
                                            params_to_jax(model))
+    # the bonds step twice more from the seed: each run's SHA-256
+    out["2d_repeat"] = []
+    for _ in range(2):
+        model = model_of("bonds")
+        tpar.make_halo_dp_train_step(model, *sgd(model), mesh)(
+            sh, rep, t, np.ones_like(t), np.ones_like(t))
+        out["2d_repeat"].append(sha(model))
 
 with open(os.path.join(sys.argv[2], f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(out, f)
@@ -413,6 +434,17 @@ def test_dp_step_matches_jax(run):
     np.testing.assert_allclose(p_gnorm, float(gnorm), rtol=RTOL)
     _close(p_new, new, what="parameters")
     _close(p_grads, grads, what="gradients")
+
+
+@pytest.mark.parametrize("key, n", [("dp_repeat", 2), ("2d_repeat", 4)])
+def test_two_runs_of_one_seed_agree_bit_for_bit(run, key, n):
+    """The dp step (2 ranks) and the 2-D halo step (dp 2 x ep 2), each run
+    twice from one seed: the parameters' SHA-256 are equal between the
+    runs and on every rank."""
+    _, launches = run
+    results = launches[n].result()
+    assert all(len(r[key]) == 2 for r in results)
+    assert len({sha for r in results for sha in r[key]}) == 1
 
 
 def test_window_dropout_is_invariant_to_the_ep_split(run):

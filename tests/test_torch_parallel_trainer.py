@@ -105,6 +105,8 @@ def test_torchrun_train_matches_single_device(runs, mode):
     verbose = open(tmp / mode / "verbose.log").read()
     assert f"{banner} training" in verbose and "over 2 devices" in verbose
     assert "fallback" not in verbose
+    if banner == "Graph-parallel":
+        assert "graph_parallel: 0 of " in verbose
     got = _score(tmp / mode)
     assert np.isfinite(got)
     assert abs(got - single[kind]) / abs(single[kind]) < 1e-3, \
